@@ -1,0 +1,254 @@
+"""Parity of the port's ops (transfusion_torch/ops) with the JAX package's,
+on the CPU where every kernel wrapper runs its plain version. The JAX side
+runs as its own tests run it: Pallas in interpret mode, or impl="xla".
+Inputs are made with numpy from a seed and handed to both."""
+
+import ast
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.roi_align_oracle import roi_align_oracle
+from transfusion_torch.models.detector import rescale_boxes
+from transfusion_torch.ops import attention as t_attn
+from transfusion_torch.ops import boxes as t_boxes
+from transfusion_torch.ops import layer_norm as t_ln
+from transfusion_torch.ops import nms as t_nms
+from transfusion_torch.ops import roi_align as t_roi
+from transfusion_tpu.ops import attention as j_attn
+from transfusion_tpu.ops import boxes as j_boxes
+from transfusion_tpu.ops import roi_align as j_roi
+from transfusion_tpu.ops.layer_norm import fused_layer_norm as j_fused_ln
+from transfusion_tpu.models.detector import rescale_boxes as j_rescale_boxes
+from transfusion_tpu.ops.nms import batched_nms as j_batched_nms
+from transfusion_tpu.ops.nms import class_nms_multi as j_class_nms_multi
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _t(x, dtype=None):
+    out = torch.from_numpy(np.ascontiguousarray(x))
+    return out if dtype is None else out.to(dtype)
+
+
+# --------------------------------------------------------------- (a) K1 LN
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 896])
+def test_layer_norm_matches_jax(rng, d, dtype, residual):
+    """74 rows (not a multiple of the TPU kernel's 256-row block). f32: 1e-5;
+    bf16: outputs may differ by one bf16 ulp (|y| < 8 -> 3e-2) because the
+    two packages sum the statistics in different orders."""
+    x = rng.normal(2.0, 3.0, (2, 37, d)).astype(np.float32)
+    r = rng.normal(0.0, 1.0, (2, 37, d)).astype(np.float32)
+    w = rng.normal(1.0, 0.2, (d,)).astype(np.float32)
+    b = rng.normal(0.0, 0.2, (d,)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = j_fused_ln(jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(b),
+                     residual=jnp.asarray(r).astype(jdt) if residual else None)
+    got = t_ln.fused_layer_norm(_t(x, tdt), _t(w), _t(b), residual=_t(r, tdt) if residual else None)
+    assert got.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------ (b) K2 attention
+def _qkv(rng, b=2, n=70, h=2, d=24):
+    q, k, v = (rng.normal(0, 1, (b, n, h, d)).astype(np.float32) for _ in range(3))
+    mask = np.zeros((b, n), bool)
+    mask[0, 61:] = True
+    return q, k, v, mask
+
+
+def test_attention_matches_jax_flash_and_xla(rng):
+    """D = 24 (not a power of two), a padded key tail on one batch row.
+    f32 tolerance 2e-5 (the JAX package's own flash-vs-XLA bound); the
+    (m, l) statistics match the TPU kernel's side output."""
+    q, k, v, mask = _qkv(rng)
+    got, stats = t_attn.attention_fwd(_t(q), _t(k), _t(v), _t(mask), return_stats=True)
+    ref_flash = j_attn.flash_attention_train(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             jnp.asarray(mask), dropout_rate=0.0, block_q=32)
+    tr = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)  # noqa: E731
+    ref_xla = j_attn.xla_self_attention(tr(q), tr(k), tr(v), jnp.asarray(mask)).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_flash), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_xla), rtol=2e-5, atol=2e-5)
+
+    bias = jnp.where(jnp.asarray(mask), j_attn._NEG, 0.0).astype(jnp.float32)[:, None, :]
+    _, res = j_attn._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias,
+                               jnp.zeros((1, 1), jnp.int32), 0.0, 32)
+    lse = np.asarray(res[-1])[:, :, : q.shape[1]]
+    np.testing.assert_allclose(stats[..., 0].numpy(), lse[..., 0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(stats[..., 1].numpy(), lse[..., 32], rtol=1e-5, atol=1e-5)
+
+
+def test_attention_bf16_matches_jax_flash(rng):
+    """bf16 inputs, f32 softmax: one bf16 ulp of an O(1) output (1e-2)."""
+    q, k, v, mask = _qkv(rng, n=40, d=16)
+    got = t_attn.attention_fwd(*(_t(a, torch.bfloat16) for a in (q, k, v)), _t(mask))
+    ref = j_attn.flash_attention_train(*(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+                                       jnp.asarray(mask), dropout_rate=0.0, block_q=32)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=1e-2, atol=1e-2)
+
+
+def test_attention_dropout_not_ported(rng):
+    q, k, v, mask = _qkv(rng, n=8, d=8)
+    with pytest.raises(NotImplementedError):
+        t_attn.attention_fwd(_t(q), _t(k), _t(v), _t(mask), dropout_rate=0.1)
+
+
+# ------------------------------------------------------------ (c) K5 RoIAlign
+def _pyramid(rng, sizes, bsz, c=4):
+    return {k: rng.normal(0, 1, (bsz, s, s, c)).astype(np.float32) for k, s in zip("0123", sizes)}
+
+
+_ROIS = np.array([
+    [0, 0, 64, 64], [0, 0, 230, 230], [3.2, 7.7, 251.0, 11.1], [-5, -5, 40, 60],
+    [0, 0, 256, 256], [4.0, 4.0, 4.0, 4.0], [100.5, 20.25, 140.0, 250.0],
+], np.float32)
+
+
+def test_roi_align_matches_jax_xla_and_oracle(rng):
+    """Adaptive sampling, partly-outside and zero-area RoIs, a sliver that
+    spans many cells; f32 tolerance 1e-5 (summation order)."""
+    feats = _pyramid(rng, (64, 32, 16, 8), 2)
+    rois = np.stack([_ROIS, _ROIS[::-1]])
+    got = t_roi.multiscale_roi_align({k: _t(v) for k, v in feats.items()}, _t(rois), (256, 256))
+    ref = j_roi.multiscale_roi_align({k: jnp.asarray(v) for k, v in feats.items()},
+                                     jnp.asarray(rois), (256, 256), impl="xla")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    lv = t_roi.fpn_levels(_t(rois[0])).numpy()
+    np.testing.assert_array_equal(lv, np.asarray(j_roi.fpn_levels(jnp.asarray(rois[0]))))
+    for i in range(len(_ROIS)):
+        o = roi_align_oracle(feats[str(lv[i])][0], rois[0, i:i + 1], (64 >> lv[i]) / 256, ratio=0)
+        np.testing.assert_allclose(got[0, i].numpy(), o[0], rtol=1e-4, atol=1e-5)
+
+
+def test_roi_align_clamped_multitile_matches_jax_pallas(rng):
+    """The regime of test_fused_pallas_roi_align_clamped_multitile_parity:
+    RoIs hugging the packed pyramid's edge. Against the TPU kernel in
+    interpret mode and the numpy oracle, f32 1e-4 / 1e-5."""
+    feats = _pyramid(rng, (96, 48, 24, 12), 1)
+    rois = np.array([[90.0, 40.0, 370.0, 52.0], [40.0, 90.0, 52.0, 370.0],
+                     [300.0, 300.0, 383.0, 383.0]], np.float32)
+    got = t_roi.multiscale_roi_align({k: _t(v) for k, v in feats.items()}, _t(rois[None]), (384, 384))
+    ref = j_roi.multiscale_roi_align({k: jnp.asarray(v) for k, v in feats.items()},
+                                     jnp.asarray(rois[None]), (384, 384), impl="pallas")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+    lv = t_roi.fpn_levels(_t(rois)).numpy()
+    for i in range(len(rois)):
+        o = roi_align_oracle(feats[str(lv[i])][0], rois[i:i + 1], (96 >> lv[i]) / 384, ratio=0)
+        np.testing.assert_allclose(got[0, i].numpy(), o[0], rtol=1e-4, atol=1e-5)
+
+
+def test_roi_sample_params_match_jax(rng):
+    feats = _pyramid(rng, (64, 32, 16, 8), 1)
+    rois = _ROIS[None]
+    _, shapes, offsets = t_roi.pack_pyramid({k: _t(v) for k, v in feats.items()})
+    jpacked, jshapes, joffsets = j_roi.pack_pyramid({k: jnp.asarray(v) for k, v in feats.items()})
+    assert [tuple(s) for s in jshapes] == shapes and list(joffsets) == offsets
+    got = t_roi.roi_sample_params(_t(rois), shapes, offsets, (256, 256), 7, 0)
+    ref = j_roi.roi_sample_params(jnp.asarray(rois), jshapes, joffsets, (256, 256), 7, 0)
+    for key in ref:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), rtol=1e-6, err_msg=key)
+
+
+# --------------------------------------------------------------- boxes / NMS
+def test_boxes_match_jax(rng):
+    a = rng.uniform(0, 50, (6, 4)).astype(np.float32)
+    a[:, 2:] += a[:, :2]
+    b = rng.uniform(-10, 60, (5, 4)).astype(np.float32)
+    b[:, 2:] = b[:, :2] + np.abs(b[:, 2:])
+    np.testing.assert_allclose(t_boxes.box_area(_t(b)).numpy(),
+                               np.asarray(j_boxes.box_area(jnp.asarray(b))), rtol=1e-6)
+    np.testing.assert_allclose(t_boxes.box_iou(_t(a), _t(b)).numpy(),
+                               np.asarray(j_boxes.box_iou(jnp.asarray(a), jnp.asarray(b))), rtol=1e-6)
+    np.testing.assert_allclose(t_boxes.clip_boxes(_t(b), 40, 30).numpy(),
+                               np.asarray(j_boxes.clip_boxes(jnp.asarray(b), 40, 30)))
+    np.testing.assert_array_equal(t_boxes.small_box_mask(_t(b), 20.0).numpy(),
+                                  np.asarray(j_boxes.small_box_mask(jnp.asarray(b), 20.0)))
+    deltas = rng.normal(0, 1, (6, 3, 4)).astype(np.float32) * 3
+    for w in ((1.0, 1.0, 1.0, 1.0), (10.0, 10.0, 5.0, 5.0)):
+        np.testing.assert_allclose(
+            t_boxes.BoxCoder(w).decode(_t(deltas), _t(a)).numpy(),
+            np.asarray(j_boxes.BoxCoder(w).decode(jnp.asarray(deltas), jnp.asarray(a))),
+            rtol=1e-5, atol=1e-4)
+    hw_from = np.array([[480, 640], [768, 1024]], np.float32)
+    for to_hw in ((1080, 1920), np.array([[1080, 1440], [720, 1280]], np.float32)):
+        np.testing.assert_allclose(
+            rescale_boxes(_t(np.stack([a[:5], b])), _t(hw_from), torch.as_tensor(to_hw)).numpy(),
+            np.asarray(j_rescale_boxes(jnp.asarray(np.stack([a[:5], b])), hw_from, to_hw)),
+            rtol=1e-6)
+
+
+@pytest.mark.parametrize("block", [256, 16])
+def test_nms_matches_jax_slot_by_slot(rng, block):
+    """Quantised scores force ties, whose order must follow the stable
+    descending sort; several blocks and an early stop (block 16). Integers
+    must match exactly."""
+    n = 300
+    xy = rng.uniform(0, 200, (2, n, 2)).astype(np.float32)
+    wh = rng.uniform(5, 60, (2, n, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    scores = (rng.integers(0, 20, (2, n)) / 20.0).astype(np.float32)
+    valid = rng.uniform(0, 1, (2, n)) > 0.1
+    classes = rng.integers(0, 3, (2, n))
+    for max_keep in (40, 400):
+        got = t_nms.class_nms_multi(_t(boxes), _t(scores), _t(classes), _t(valid), 0.5, max_keep, block)
+        ref = j_class_nms_multi(jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(classes),
+                                    jnp.asarray(valid), 0.5, max_keep, block)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+        got = t_nms.batched_nms(_t(boxes[1]), _t(scores[1]), _t(classes[1]), _t(valid[1]), 0.5,
+                                max_keep, block)
+        ref = j_batched_nms(jnp.asarray(boxes[1]), jnp.asarray(scores[1]), jnp.asarray(classes[1]),
+                            jnp.asarray(valid[1]), 0.5, max_keep, block)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+
+
+# ------------------------------------------------ (g) no JAX in the port
+def _port_files():
+    pkg = os.path.join(REPO, "transfusion_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output, not package source
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    return files
+
+
+def test_port_imports_no_jax():
+    files = _port_files()
+    assert len(files) > 15
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "transfusion_tpu")
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and getattr(node.func, "id", "") == "__import__":
+                names = [getattr(a, "value", "") for a in node.args[:1]]
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path} imports {name}"
+
+
+# ------------------------------------------- (h) CUDA by default, no fallback
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    from transfusion_torch.device import resolve_device
+    from transfusion_torch.models.detector import DetectorConfig, FasterRCNN
+    from transfusion_torch.models.transfusion import TransFusion, flagship_config
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device; the entry points would run there")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransFusion(flagship_config())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FasterRCNN(DetectorConfig(stage_sizes=(1, 1, 1, 1)))
+    assert resolve_device("cpu").type == "cpu"

@@ -1,0 +1,115 @@
+"""Faster R-CNN assembly with the reference's three-phase seam (port of
+``transfusion_tpu/models/detector.py``, eval): ``forward_features``
+(backbone body), ``apply_fpn`` and ``apply_rpn_roi``, so the fusion can
+rewrite backbone maps before the FPN. Postprocessing is the separate
+function :func:`detections_from_outputs`.
+
+Top-level names are the reference checkpoint's: ``backbone.body``,
+``backbone.fpn``, ``rpn.head``, ``roi_heads``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+from torch import nn
+
+from transfusion_torch.device import resolve_device
+from transfusion_torch.models.fpn import FPN
+from transfusion_torch.models.resnet import RESNET50_CHANNELS, ResNet
+from transfusion_torch.models.roi_heads import RoIConfig, RoIHeads, postprocess_detections
+from transfusion_torch.models.rpn import RPNConfig, RPNHead, generate_proposals
+from transfusion_torch.ops.roi_align import multiscale_roi_align
+
+POOLED = 7
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    roi: RoIConfig = field(default_factory=RoIConfig)
+    rpn: RPNConfig = field(default_factory=RPNConfig)
+    fpn_out_channels: int = 256
+    stride_in_1x1: bool = True  # adapt_to_detectron
+    stage_sizes: tuple = (3, 4, 6, 3)
+    s2d_stem: bool = False
+    dtype: torch.dtype = torch.float32
+
+
+class _Backbone(nn.Module):
+    def __init__(self, cfg: DetectorConfig):
+        super().__init__()
+        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype)
+        chans = [RESNET50_CHANNELS[str(i)] for i in range(len(cfg.stage_sizes))]
+        self.fpn = FPN(chans, cfg.fpn_out_channels, cfg.dtype)
+
+
+class _RPN(nn.Module):
+    def __init__(self, cfg: DetectorConfig):
+        super().__init__()
+        self.head = RPNHead(cfg.fpn_out_channels, len(cfg.rpn.aspect_ratios), cfg.dtype)
+
+
+class FasterRCNN(nn.Module):
+    """Entry point: built on ``device`` (``cuda`` unless named)."""
+
+    def __init__(self, cfg: DetectorConfig, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        if cfg.s2d_stem:
+            raise NotImplementedError("the port has the plain 7x7 stem only (s2d_stem=False)")
+        self.cfg = cfg
+        self.backbone = _Backbone(cfg)
+        self.rpn = _RPN(cfg)
+        self.roi_heads = RoIHeads(cfg.roi, cfg.fpn_out_channels * POOLED * POOLED, cfg.dtype)
+        self.to(dev).eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.backbone.body.conv1.weight.device
+
+    def forward_features(self, images):
+        """images [B, H, W, 3] (the JAX batch layout) -> backbone maps
+        {"0".."3"}, NCHW in the channels-last memory format."""
+        x = images.to(self.device).permute(0, 3, 1, 2)
+        return self.backbone.body(x)
+
+    def apply_fpn(self, feats):
+        return self.backbone.fpn(feats)
+
+    def apply_rpn_roi(self, fpn_feats, image_hw):
+        """RPN + RoI heads over FPN maps (eval: every proposal, no sampling).
+        Returns {"roi_outputs", "proposals", "image_sizes"}."""
+        objectness, deltas = self.rpn.head(fpn_feats)
+        rpn_out = generate_proposals(objectness, deltas, image_hw, self.cfg.rpn)
+        rois, roi_valid = rpn_out["boxes"], rpn_out["valid"]
+        levels = {k: v.permute(0, 2, 3, 1) for k, v in fpn_feats.items() if k.isdigit()}
+        pooled = multiscale_roi_align(levels, rois, image_hw)
+        roi_outputs = {**self.roi_heads(pooled), "proposals": rois, "proposals_valid": roi_valid}
+        return {"roi_outputs": roi_outputs, "proposals": rpn_out, "image_sizes": tuple(image_hw)}
+
+    def forward(self, images, image_hw):
+        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images)), image_hw)
+
+
+def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None):
+    """Postprocess raw RoI outputs into per-image top-k detections (eval)."""
+    roi = outputs["roi_outputs"]
+    return postprocess_detections(roi, roi["proposals"], roi["proposals_valid"],
+                                  outputs["image_sizes"], cfg.roi,
+                                  noun_verb_frequencies=noun_verb_frequencies)
+
+
+def rescale_boxes(boxes, from_hw, to_hw):
+    """torchvision resize_boxes: independent x/y ratios; from_hw/to_hw are
+    (h, w) pairs or [B, 2] tensors."""
+    from_hw = torch.as_tensor(from_hw, dtype=boxes.dtype, device=boxes.device)
+    to_hw = torch.as_tensor(to_hw, dtype=boxes.dtype, device=boxes.device)
+    if from_hw.dim() == 1:
+        from_hw = from_hw[None]
+    if to_hw.dim() == 1:
+        to_hw = to_hw[None]
+    ry = (to_hw[:, 0] / from_hw[:, 0])[:, None]
+    rx = (to_hw[:, 1] / from_hw[:, 1])[:, None]
+    return torch.stack([boxes[..., 0] * rx, boxes[..., 1] * ry,
+                        boxes[..., 2] * rx, boxes[..., 3] * ry], dim=-1)
