@@ -8,22 +8,34 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
 
 1. build the hand-written kernels (``transfusion_torch/csrc/*.cu``) for
    sm_90a and print the build time;
-2. for each kernel entry (LayerNorm, residual LayerNorm, attention forward,
-   RoIAlign forward), at the flagship eval path's shapes in bf16 plus one
-   f32 case: the kernel against its plain PyTorch version (max |diff|
-   against a stated tolerance), kernel / plain / library-call times from
-   CUDA events, and the least time the card could take (bound_ms, from the
-   H100 SXM data-sheet rates 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s
-   f32);
-3. a small-input reference check: the tiny f32 model's trunk on the card
-   (kernels) against the same weights on the CPU (plain versions);
-4. the slice: the flagship eval forward + ``detections_from_outputs`` at
-   B 8, 768x1024, 64 language tokens, seeded random weights, for a few
+2. for each kernel entry -- eval: LayerNorm, residual LayerNorm, attention
+   forward, RoIAlign forward; training: attention forward with dropout,
+   attention backward dQ and dK/dV, RoIAlign backward -- at the flagship
+   paths' shapes in bf16 plus one f32 case: the kernel against its plain
+   PyTorch version (max |diff| against a stated tolerance; the dropout mask
+   bit for bit), kernel / plain / library-call times from CUDA events, and
+   the least time the card could take (bound_ms, from the H100 SXM
+   data-sheet rates 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s f32);
+3. small-input reference checks: the tiny f32 model's trunk on the card
+   (kernels) against the same weights on the CPU (plain versions), then one
+   tiny f32 train step on the card against the same step on the CPU (same
+   weights and sampler draws, dropout off; the level-0 sequence passes the
+   2048-token gate so the attention kernels run);
+4. the eval slice: the flagship eval forward + ``detections_from_outputs``
+   at B 8, 768x1024, 64 language tokens, seeded random weights, for a few
    requests; frames/s, mean kept detections, and the kernel launch counts
-   of that run, which must be LN 36 / attention 4 / RoIAlign 1 a forward.
+   of that run, which must be LN 36 / attention 4 / RoIAlign 1 a forward;
+5. the train slice: the flagship train step (RAdam lr 1e-4, wd 1e-5,
+   bbox/obj_prop/noun/verb criterion, the trainer's epoch-0 freeze
+   multipliers) on the same input with one GT box an image, one warm-up
+   and a few timed steps; frames/s, peak memory, finite losses, no skipped
+   step, non-zero gradients upstream of the attention and RoIAlign
+   kernels, and launches a step of attention-with-dropout 4 / dQ 4 /
+   dK-dV 4 / RoIAlign 1 / RoIAlign backward 1 / LayerNorm 0.
 
-With ``--profile`` a fifth phase times each stage of the forward and
-traces one request with ``torch.profiler`` (device-busy share, top kernels).
+With ``--profile`` the script also times each stage of the eval forward and
+traces one request and one train step with ``torch.profiler`` (device-busy
+share, top kernels).
 
 The last three lines of stdout are the ``kernels`` JSON line, the card's
 name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -43,23 +55,38 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 B, H, W, LANG_LEN = 8, 768, 1024, 64
 REQUESTS = 10  # the request is host-bound and varies; ten give a steadier mean
+TRAIN_STEPS = 4
 HBM_BPS = 3.35e12          # H100 SXM HBM3
 BF16_TC_FLOPS = 989e12     # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 EXPECTED_PER_FORWARD = {"layer_norm": 4, "residual_layer_norm": 32, "attention_fwd": 4,
                         "roi_align_fwd": 1}
+EXPECTED_PER_STEP = {"attention_fwd_dropout": 4, "attention_bwd_dq": 4, "attention_bwd_dkv": 4,
+                     "roi_align_fwd": 1, "roi_align_bwd": 1, "layer_norm": 0,
+                     "residual_layer_norm": 0, "attention_fwd": 0}
+TRAIN_KERNELS = ("attention_fwd_dropout", "attention_bwd_dq", "attention_bwd_dkv", "roi_align_bwd")
 REPLACES = {
     "layer_norm": "transfusion_tpu/ops/layer_norm.py:55",
     "residual_layer_norm": "transfusion_tpu/ops/layer_norm.py:59",
     "attention_fwd": "transfusion_tpu/ops/attention.py:226",
+    "attention_fwd_dropout": "transfusion_tpu/ops/attention.py:226",
+    "attention_bwd_dq": "transfusion_tpu/ops/attention.py:253",
+    "attention_bwd_dkv": "transfusion_tpu/ops/attention.py:297",
     "roi_align_fwd": "transfusion_tpu/ops/roi_align_pallas.py:267",
+    "roi_align_bwd": "transfusion_tpu/ops/roi_align_pallas.py:370",
 }
 SOURCES = {
     "layer_norm": "transfusion_torch/csrc/layer_norm.cu",
     "residual_layer_norm": "transfusion_torch/csrc/layer_norm.cu",
     "attention_fwd": "transfusion_torch/csrc/attention.cu",
+    "attention_fwd_dropout": "transfusion_torch/csrc/attention.cu",
+    "attention_bwd_dq": "transfusion_torch/csrc/attention_bwd.cu",
+    "attention_bwd_dkv": "transfusion_torch/csrc/attention_bwd.cu",
     "roi_align_fwd": "transfusion_torch/csrc/roi_align.cu",
+    "roi_align_bwd": "transfusion_torch/csrc/roi_align_bwd.cu",
 }
+N0, HEADS, HEAD_DIM = 3136, 4, 224  # fusion level 0: 3072 visual + 64 language tokens
+DROPOUT = 0.15  # token_dropout, the rate K2 runs at in training
 
 
 def log(msg: str) -> None:
@@ -179,6 +206,134 @@ def phase_attention(torch):
             "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
+def _attention_inputs(torch, seed: int):
+    """Level-0 q/k/v [B, 3136, 4, 224] bf16 and a key-padding mask (padded
+    language tokens on half the batch)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, N0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    mask = torch.zeros(B, N0, dtype=torch.bool, device="cuda")
+    mask[: B // 2, -40:] = True
+    return q, k, v, mask, g
+
+
+def _attention_bound(flops: float, tensors: int):
+    """bound_ms of an attention kernel that reads/writes ``tensors`` tensors
+    of [B, N, H, D] bf16 plus the f32 statistics and key bias."""
+    return bound_ms(tensors * B * N0 * HEADS * HEAD_DIM * 2 + B * HEADS * N0 * 8 + B * N0 * 4, flops,
+                    BF16_TC_FLOPS)
+
+
+def phase_attention_dropout(torch):
+    """K2 with probability dropout at rate 0.15: its output against the plain
+    version, and its keep mask bit for bit over every (cell, query, key) of
+    level 0. With q = k = 0 every probability is 1 / N before dropout, so a
+    one-hot V over a window of 224 keys reads those keys' keep bits out of
+    the output; 14 windows cover the 3136 keys."""
+    from transfusion_torch.ops import attention as at
+
+    q, k, v, mask, g = _attention_inputs(torch, 4)
+    seed = -1234567
+    log(f"[attention_fwd_dropout] q/k/v [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {DROPOUT}")
+    got = at.attention_fwd(q, k, v, mask, DROPOUT, seed)
+    want, _ = at.attention_plain(q, k, v, mask, DROPOUT, seed)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    scale = float(want.float().abs().max())
+    check("attention dropout bf16 output", err, 2 * bf16_ulp(scale))
+    mean_rel = float((got.float() - want.float()).abs().mean() / want.float().abs().mean())
+    check("attention dropout bf16 output", mean_rel, 2.0 ** -7, "mean|kernel - plain| / mean|plain|")
+    del want
+    keep = at.dropout_keep_mask(B, HEADS, N0, seed, DROPOUT, "cuda")
+    zeros = torch.zeros(B, N0, HEADS, HEAD_DIM, dtype=torch.bfloat16, device="cuda")
+    eye = torch.eye(HEAD_DIM, dtype=torch.bfloat16, device="cuda")
+    mismatches = 0
+    for w0 in range(0, N0, HEAD_DIM):
+        vw = torch.zeros_like(zeros)
+        vw[:, w0:w0 + HEAD_DIM] = eye[None, :, None, :]
+        bits = at.attention_fwd(zeros, zeros, vw, None, DROPOUT, seed) > 0      # [B, N, H, 224]
+        mismatches += int((bits.permute(0, 2, 1, 3) != keep[..., w0:w0 + HEAD_DIM]).sum())
+    kept = float(keep.float().mean())
+    log(f"  keep bits compared: {keep.numel()}, kept share {kept:.5f} (1 - rate = {1 - DROPOUT})")
+    check("attention dropout keep mask", float(mismatches), 0.0, "mismatching keep bits")
+    del keep, zeros, vw, bits
+    qf, kf, vf = (torch.randn(1, 1100, HEADS, HEAD_DIM, device="cuda", generator=g) for _ in range(3))
+    check("attention dropout f32 output", max_err(at.attention_fwd(qf, kf, vf, None, DROPOUT, 9),
+                                                   at.attention_plain(qf, kf, vf, None, DROPOUT, 9)[0]),
+          1e-5)
+    ms = cuda_ms(lambda: at.attention_fwd(q, k, v, mask, DROPOUT, seed), 5, warmup=1)
+    plain = cuda_ms(lambda: at.attention_plain(q, k, v, mask, DROPOUT, seed), 1, warmup=1)
+    bms, by = _attention_bound(4 * B * HEADS * N0 * N0 * HEAD_DIM, 4)
+    torch.cuda.empty_cache()
+    # No PyTorch call computes this hash mask: no library time.
+    return {"name": "attention_fwd_dropout", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def phase_attention_bwd(torch):
+    """K3 (dQ) and K4 (dK, dV) at rate 0.15 against the plain backward from
+    the same forward output and statistics. The backward rounds dS to bf16
+    from probabilities the two sides compute with different exp routines,
+    so a dS may land one ulp apart: outputs are held at four bf16 ulps of
+    max|plain| and a mean difference under 2^-7 of mean|plain|."""
+    from transfusion_torch import kernels
+    from transfusion_torch.ops import attention as at
+
+    q, k, v, mask, g = _attention_inputs(torch, 5)
+    dout = torch.randn(B, N0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
+    seed = 424242
+    log(f"[attention_bwd] q/k/v/o/dO [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {DROPOUT}")
+    out, stats = at.attention_fwd(q, k, v, mask, DROPOUT, seed, return_stats=True)
+    got = at.attention_bwd(q, k, v, out, stats, dout, mask, DROPOUT, seed)
+    want = at.attention_bwd_plain(q, k, v, out, stats, dout, mask, DROPOUT, seed)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = max_err(a, b)
+        check(f"attention backward bf16 {name}", errs[name], 4 * bf16_ulp(float(b.float().abs().max())))
+        mean_rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+        check(f"attention backward bf16 {name}", mean_rel, 2.0 ** -7, "mean|kernel - plain| / mean|plain|")
+    del got, want
+    torch.cuda.empty_cache()
+    qf, kf, vf, df = (torch.randn(1, 700, HEADS, 96, device="cuda", generator=g) for _ in range(4))
+    of, sf = at.attention_fwd(qf, kf, vf, None, DROPOUT, 3, return_stats=True)
+    for name, a, b in zip(("dq", "dk", "dv"), at.attention_bwd(qf, kf, vf, of, sf, df, None, DROPOUT, 3),
+                          at.attention_bwd_plain(qf, kf, vf, of, sf, df, None, DROPOUT, 3)):
+        check(f"attention backward f32 {name}", max_err(a, b) / float(b.abs().max()), 1e-4,
+              "max|kernel - plain| / max|plain|")
+    # Each kernel timed alone through its C entry (the wrapper launches both).
+    lib, stream = kernels.library(), kernels.stream_handle(q.device)
+    bias = at.key_bias(mask, B, N0, q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    common = (B, N0, HEADS, HEAD_DIM, 1.0 / HEAD_DIM ** 0.5, 1, *at._dropout_args(DROPOUT, seed), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+           bias.data_ptr(), stats.data_ptr())
+    ms_dq = cuda_ms(lambda: lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), 5, warmup=1)
+    ms_dkv = cuda_ms(lambda: lib.tf_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common), 5,
+                     warmup=1)
+    plain = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, out, stats, dout, mask, DROPOUT, seed), 1,
+                    warmup=1)
+    torch.cuda.empty_cache()
+    # Yardstick: the backward of scaled_dot_product_attention at rate 0 (all
+    # three gradients in one call).
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ref = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias.to(q.dtype)[:, None, None, :])
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dout.transpose(1, 2),
+                                                 retain_graph=True), 5, warmup=1)
+    n2d = B * HEADS * N0 * N0 * HEAD_DIM
+    b_dq, by_dq = _attention_bound(6 * n2d, 6)
+    b_dkv, by_dkv = _attention_bound(8 * n2d, 7)
+    log(f"  dQ {6 * n2d / (ms_dq * 1e-3) / 1e12:.1f} TFLOP/s, dK/dV {8 * n2d / (ms_dkv * 1e-3) / 1e12:.1f} "
+        f"TFLOP/s achieved; plain backward (dQ, dK, dV together) {plain:.2f} ms")
+    del ref, qt, kt, vt
+    torch.cuda.empty_cache()
+    return [{"name": "attention_bwd_dq", "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain,
+             "library_ms": lib_ms, "bound_ms": b_dq, "bound_by": by_dq},
+            {"name": "attention_bwd_dkv", "max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms_dkv,
+             "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_dkv, "bound_by": by_dkv}]
+
+
 def _synthetic_rois(torch, g, bsz, n, hw):
     """Proposal-like boxes: log-uniform sides 16..700 px, aspect 0.5..2."""
     side = torch.exp(torch.empty(bsz, n, device="cuda").uniform_(2.77, 6.55, generator=g))
@@ -248,24 +403,81 @@ def phase_roi_align(torch):
             "library_ms": None, "bound_ms": bms, "bound_by": by}
 
 
-def _tiny_cfg():
+def phase_roi_align_bwd(torch):
+    """K6 at the train path's shapes: 128 sampled RoIs an image pooled from
+    the bf16 pyramid; the gradient lands in a zeroed f32 pyramid by atomics
+    and is cast once to bf16. Atomics add in a varying order: the result is
+    held at one bf16 ulp of max|plain|, and its mean error over the touched
+    cells at 2^-7 of their mean."""
+    from transfusion_torch.ops import roi_align as ra
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    c, n = 256, 128
+    sizes = [(H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16), (H // 32, W // 32)]
+    log(f"[roi_align_bwd] pyramid {sizes} x {c} bf16, rois [{B}, {n}, 4], grad [{B}, {n}, 7, 7, {c}]")
+    feats = {str(i): torch.empty(B, h, w, c, dtype=torch.bfloat16, device="cuda")
+             for i, (h, w) in enumerate(sizes)}
+    rois = _synthetic_rois(torch, g, B, n, (H, W))
+    packed, shapes, offsets = ra.pack_pyramid(feats)
+    shape = tuple(packed.shape)
+    params = ra.roi_sample_params(rois, shapes, offsets, (H, W), 7, 0)
+    gout = torch.randn(B, n, 7, 7, c, device="cuda", generator=g).to(torch.bfloat16)
+    got = ra.roi_align_bwd(gout, params, shape, torch.bfloat16)
+    want = ra.roi_align_bwd_plain(gout, params, shape, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check("roi_align backward bf16", err, bf16_ulp(float(want.float().abs().max())))
+    # One lost sample moves a cell by far less than the ulp above; the mean
+    # over the cells the RoIs touch sees it.
+    touched_cells = (want != 0) | (got != 0)
+    mean_rel = float((got.float() - want.float()).abs()[touched_cells].mean()
+                     / want.float().abs()[touched_cells].mean())
+    check("roi_align backward bf16 (touched cells)", mean_rel, 2.0 ** -7,
+          "mean|kernel - plain| / mean|plain|")
+    del touched_cells
+    pf =ra.roi_sample_params(rois[:2, :50], shapes, offsets, (H, W), 7, 0)
+    gf = torch.randn(2, 50, 7, 7, c, device="cuda", generator=g)
+    shape_f = (2,) + shape[1:]
+    want_f = ra.roi_align_bwd_plain(gf, pf, shape_f, torch.float32)
+    check("roi_align backward f32", max_err(ra.roi_align_bwd(gf, pf, shape_f, torch.float32), want_f)
+          / float(want_f.abs().max()), 1e-5, "max|kernel - plain| / max|plain|")
+    ms = cuda_ms(lambda: ra.roi_align_bwd(gout, params, shape, torch.bfloat16), 10)
+    plain = cuda_ms(lambda: ra.roi_align_bwd_plain(gout, params, shape, torch.bfloat16), 1, warmup=1)
+    samples = float((params["ry"] * params["rx"]).sum()) * 49
+    # The output is the whole bf16 pyramid, written once; g is read once.
+    bms, by = bound_ms(packed.numel() * 2 + gout.numel() * 2 + rois.numel() * 4, samples * c * 8,
+                       F32_FLOPS)
+    log(f"  {samples:.0f} bilinear samples; kernel time includes zeroing the f32 accumulator "
+        f"and the cast to bf16")
+    del packed, feats, got, want
+    torch.cuda.empty_cache()
+    return {"name": "roi_align_bwd", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+
+
+def _tiny_cfg(train: bool = False):
     from transfusion_torch.models.detector import DetectorConfig
     from transfusion_torch.models.roi_heads import RoIConfig
     from transfusion_torch.models.rpn import RPNConfig
     from transfusion_torch.models.text_encoder import BertConfig
     from transfusion_torch.models.transfusion import FusionConfig, TransFusionConfig
 
+    # Training: every dropout rate 0 so the card and the CPU take one step.
+    off = {"token_dropout": 0.0, "patch_dropout": 0.0, "backproj_dropout": 0.0} if train else {}
     return TransFusionConfig(
         detector=DetectorConfig(
             roi=RoIConfig(num_nouns=7, num_verbs=5, representation_size=64, detections_per_img=10,
-                          score_thresh=0.01, ttc_on=True, additional_postprocessing=True),
-            rpn=RPNConfig(pre_nms_top_n_test=64, post_nms_top_n_test=32, score_thresh=0.01),
+                          score_thresh=0.01, ttc_on=True, additional_postprocessing=True,
+                          batch_size_per_image=16),
+            rpn=RPNConfig(pre_nms_top_n_test=64, post_nms_top_n_test=32, score_thresh=0.01,
+                          pre_nms_top_n_train=64, post_nms_top_n_train=32),
             stage_sizes=(1, 1, 1, 1)),
         fusion=FusionConfig(fpn_features=(0, 3), patch_h=(1, 1), patch_w=(1, 1), num_layers=(1, 1),
-                            token_dim=64, num_heads=2, use_flash_attention=True),
+                            token_dim=64, num_heads=2, use_flash_attention=True, **off),
         bert=BertConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
-                        intermediate_size=32, max_position_embeddings=16),
-        out_mlp=64)
+                        intermediate_size=32, max_position_embeddings=16,
+                        dropout=0.0 if train else 0.1),
+        out_mlp=64, out_dropout=0.0 if train else 0.1)
 
 
 def phase_small_reference(torch):
@@ -301,6 +513,75 @@ def phase_small_reference(torch):
     check("tiny f32 trunk on the card vs the CPU", worst, 1e-4, "max|card - cpu| / max|cpu|")
     if not torch.isfinite(out["roi_outputs"]["class_logits"]).all():
         raise AssertionError("non-finite RoI outputs in the small reference run")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_small_train_reference(torch):
+    """One tiny f32 train step on the card (kernels K2-K6) against the same
+    step on the CPU (plain versions): the same weights, batch, sampler draws
+    and optimizer, dropout off. Losses agree to 1e-4 relative; every
+    parameter's update to 1e-3 of the tensor's largest update (or two f32
+    ulps of the parameter, which new - old carries, or 1e-10 where the
+    gradient is zero in exact arithmetic)."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.transfusion import TransFusion
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import LossConfig, TrainState, criterion_weights, make_train_step
+    from transfusion_torch.weights import init_random_
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _tiny_cfg(train=True)
+    cpu = init_random_(TransFusion(cfg, device="cpu"), seed=7)
+    gpu = TransFusion(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(8)
+    batch = {"image": torch.randn(2, 128, 256, 3, generator=gen),
+             "input_ids": torch.randint(0, 64, (2, 8), generator=gen),
+             "attention_mask": torch.ones(2, 8, dtype=torch.int64), "image_hw": (128, 256),
+             "targets": {"boxes": torch.tensor([[[10.0, 12.0, 90.0, 70.0], [120.0, 30.0, 250.0, 120.0]],
+                                                [[5.0, 5.0, 60.0, 44.0], [0.0, 0.0, 0.0, 0.0]]]),
+                         "nouns": torch.tensor([[2, 5], [1, 0]]), "verbs": torch.tensor([[1, 3], [999, 0]]),
+                         "ttcs": torch.tensor([[0.5, 1.5], [0.9, 0.0]]),
+                         "valid": torch.tensor([[True, True], [True, False]])}}
+    batch["attention_mask"][1, 6:] = 0
+    with torch.no_grad():
+        anchors = cpu(batch)["proposals"]["anchors"].shape[0]
+    n_roi = cfg.detector.rpn.post_nms_top_n_train + 2
+    draws = {"roi": tuple(torch.rand(2, n_roi, generator=gen) for _ in range(2)),
+             "rpn": tuple(torch.rand(2, anchors, generator=gen) for _ in range(2))}
+    on_card = {k: tuple(t.cuda() for t in v) for k, v in draws.items()}
+    lw = criterion_weights({"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "ttc": 0.5})
+    loss_cfg = LossConfig(ttc_on=True, rpn_batch_size_per_image=16, last_noun_idx=6)
+    results, before = {}, {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    for name, model, dr in (("card", gpu, on_card), ("cpu", cpu, draws)):
+        tx, _ = make_optimizer({"name": "radam", "lr": 1e-3, "weight_decay": 1e-4}, None, 10, grad_clip=4.0)
+        state = TrainState(step=0, opt_state=tx.init(dict(model.named_parameters())))
+        step = make_train_step(model, tx, loss_cfg, torch.ones(7), torch.ones(5))
+        LAUNCHES.clear()
+        results[name] = step(state, batch, lw, None, dr)
+        torch.cuda.synchronize()
+        if name == "card":
+            launches = dict(LAUNCHES)
+    need = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "roi_align_fwd", "roi_align_bwd")
+    log(f"[small train reference] launches on the card: {launches}")
+    if any(launches.get(k, 0) < 1 for k in need):
+        raise AssertionError(f"the tiny train step did not take every kernel: {launches}")
+    worst = 0.0
+    for key in ("loss", "bbox_loss", "objectness_loss", "loss_rpn_box_reg", "noun_loss", "verb_loss",
+                "ttc_loss"):
+        a, b = float(results["card"][key]), float(results["cpu"][key])
+        worst = max(worst, abs(a - b) / max(abs(b), 1e-6))
+    check("tiny f32 train step losses, card vs CPU", worst, 1e-4, "max relative difference")
+    card_params = dict(gpu.named_parameters())
+    worst = 0.0
+    for n, p in cpu.named_parameters():
+        du_cpu = p.detach() - before[n]
+        du_card = card_params[n].detach().cpu() - before[n]
+        tol = max(1e-3 * float(du_cpu.abs().max()), 2.4e-7 * float(before[n].abs().max()), 1e-10)
+        worst = max(worst, float((du_card - du_cpu).abs().max()) / tol)
+    check("tiny f32 train step updates, card vs CPU", worst, 1.0,
+          "max over tensors of max|update difference| / tolerance")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -363,14 +644,75 @@ def phase_slice(torch, np):
     return rec, (model, cfg, batch, freqs)
 
 
+def phase_train_slice(torch, np, model, cfg, batch):
+    """The flagship train step on the eval slice's model and input, with one
+    GT box an image (as bench.py::main_train)."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.runner.trainer import unfreeze_multipliers
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import LossConfig, TrainState, criterion_weights, make_train_step
+
+    torch.manual_seed(0)  # the attention dropout seeds
+    nn_, nv = cfg.detector.roi.num_nouns, cfg.detector.roi.num_verbs
+    dev = "cuda"
+    batch = dict(batch, targets={
+        "boxes": torch.tensor([[[100.0, 100.0, 400.0, 400.0]]], device=dev).repeat(B, 1, 1),
+        "nouns": torch.full((B, 1), 2, device=dev), "verbs": torch.full((B, 1), 1, device=dev),
+        "ttcs": torch.full((B, 1), 0.9, device=dev), "valid": torch.ones(B, 1, dtype=torch.bool, device=dev)})
+    tx, _ = make_optimizer({"name": "radam", "lr": 1e-4, "weight_decay": 1e-5}, None, 100)
+    state = TrainState(step=0, opt_state=tx.init(dict(model.named_parameters())))
+    # The v2 flagship's freeze rules at epoch 0 (ego_vis_det_ego4dv2.yml: the
+    # body never unfreezes; the narration encoder trains its out_mlp).
+    mult = unfreeze_multipliers(model.named_parameters(), 0,
+                                {"type": "res50", "train_ep": -1, "trainable_layers": 2}, -1, 1,
+                                cfg.bert.num_layers)
+    step = make_train_step(model, tx, LossConfig(rpn_batch_size_per_image=256, last_noun_idx=nn_ - 1),
+                           torch.ones(nn_), torch.ones(nv))
+    lw = criterion_weights({"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1})
+    log(f"[train slice] flagship train step, B {B}, {H}x{W}, {LANG_LEN} tokens; "
+        f"{sum(int(m) for m in mult.values())} of {len(mult)} parameter tensors train")
+    t0 = time.perf_counter()
+    step(state, batch, lw, mult)
+    torch.cuda.synchronize()
+    log(f"  warm-up step {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = step(state, batch, lw, mult)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = dict(LAUNCHES)
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()) or m["nonfinite_skipped"] != 0.0:
+            raise AssertionError(f"a train step went non-finite or was skipped: {m}")
+    per_step = {k: launches.get(k, 0) / TRAIN_STEPS for k in EXPECTED_PER_STEP}
+    log(f"  launches per step {per_step} (expected {EXPECTED_PER_STEP})")
+    if per_step != EXPECTED_PER_STEP:
+        raise AssertionError("the train step did not launch every kernel the expected number of times")
+    params = dict(model.named_parameters())
+    for name in ("cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight",
+                 "backbone.fpn.layer_blocks.0.weight"):
+        gnorm = float(params[name].grad.float().norm())
+        log(f"  |grad| {name} = {gnorm:.4e}")
+        if not gnorm > 0.0:
+            raise AssertionError(f"zero gradient on {name}: a kernel cut the gradient")
+    fps = B * TRAIN_STEPS / sum(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  step seconds {[round(t, 4) for t in times]}; {fps:.2f} train frames/s; "
+        f"losses {[round(m['loss'], 4) for m in metrics]}; peak memory {peak:.2f} GiB")
+    rec = {"frames_per_s": fps, "step_s": times, "metrics": metrics, "launches": launches,
+           "peak_gib": peak}
+    return rec, lambda: step(state, batch, lw, mult)
+
+
 def phase_profile(torch, model, cfg, batch, freqs):
     """Where a request's time goes: each stage of the forward timed on the
     host clock between synchronisations (so stages do not overlap), then one
     request under torch.profiler for the device-busy share and the top
     kernels by device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from transfusion_torch.models.detector import detections_from_outputs
     from transfusion_torch.models.rpn import generate_proposals
     from transfusion_torch.ops.roi_align import multiscale_roi_align
@@ -413,21 +755,32 @@ def phase_profile(torch, model, cfg, batch, freqs):
             staged_request()
         stage_ms = {k: v / reps for k, v in stages.items()}
         log(f"[profile] stage ms (synchronised): {json.dumps({k: round(v, 3) for k, v in stage_ms.items()})}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            detections_from_outputs(model(batch), cfg.detector, noun_verb_frequencies=freqs)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        rec = _trace(torch, "request", lambda: detections_from_outputs(
+            model(batch), cfg.detector, noun_verb_frequencies=freqs))
+    return {"stage_ms": stage_ms, **rec}
+
+
+def _trace(torch, what: str, fn):
+    """Run ``fn`` once under torch.profiler: its wall time, the device-busy
+    time (sum of kernel times) and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernels only: an operator's own entry repeats the time of the kernels it launched.
     kernels_run = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels_run) / 1e3
     top = sorted(kernels_run, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    log(f"[profile] profiled request {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    log(f"[profile] profiled {what} {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f})")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"stage_ms": stage_ms, "profiled_request_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {f"profiled_{what.replace(' ', '_')}_ms": wall_ms, "device_busy_ms": busy_ms,
             "top_kernels_ms": {e.key: e.self_device_time_total / 1e3 for e in top}}
 
 
@@ -462,17 +815,24 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
 
     results = [phase_layer_norm(torch, False), phase_layer_norm(torch, True),
-               phase_attention(torch), phase_roi_align(torch)]
+               phase_attention(torch), phase_attention_dropout(torch), *phase_attention_bwd(torch),
+               phase_roi_align(torch), phase_roi_align_bwd(torch)]
     phase_small_reference(torch)
+    phase_small_train_reference(torch)
     slice_rec, slice_state = phase_slice(torch, np)
     if "--profile" in sys.argv[1:]:
         slice_rec["profile"] = phase_profile(torch, *slice_state)
+    model, cfg, batch, _ = slice_state
+    train_rec, train_step = phase_train_slice(torch, np, model, cfg, batch)
+    if "--profile" in sys.argv[1:]:
+        train_rec["profile"] = _trace(torch, "train step", train_step)
 
     rows = []
     for r in results:
+        path = train_rec if r["name"] in TRAIN_KERNELS else slice_rec
         rows.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
-            "replaces": REPLACES[r["name"]], "launches": slice_rec["launches"].get(r["name"], 0),
+            "replaces": REPLACES[r["name"]], "launches": path["launches"].get(r["name"], 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
@@ -484,6 +844,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": rows, "slice": slice_rec,
+                   "train": train_rec,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(smi)

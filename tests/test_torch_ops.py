@@ -94,9 +94,15 @@ def test_attention_bf16_matches_jax_flash(rng):
 
 
 def test_attention_dropout_not_ported(rng):
+    """Dropout at rates in [0, 1) is ported (tests/test_torch_train_ops.py
+    holds it against JAX); a rate of 1 or more has no keep scale and is
+    refused by the forward and the backward alike."""
     q, k, v, mask = _qkv(rng, n=8, d=8)
-    with pytest.raises(NotImplementedError):
-        t_attn.attention_fwd(_t(q), _t(k), _t(v), _t(mask), dropout_rate=0.1)
+    with pytest.raises(ValueError, match="rate"):
+        t_attn.attention_fwd(_t(q), _t(k), _t(v), _t(mask), dropout_rate=1.0)
+    out, stats = t_attn.attention_fwd(_t(q), _t(k), _t(v), _t(mask), return_stats=True)
+    with pytest.raises(ValueError, match="rate"):
+        t_attn.attention_bwd(_t(q), _t(k), _t(v), out, stats, out, _t(mask), dropout_rate=1.5)
 
 
 # ------------------------------------------------------------ (c) K5 RoIAlign

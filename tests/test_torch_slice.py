@@ -117,7 +117,7 @@ def _encoder_layer_pair(x, pad, attn_mask=None):
     params = jl.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(pad), jmask)["params"]
     ref = jl.apply({"params": params}, jnp.asarray(x), jnp.asarray(pad), jmask)
 
-    tl = TLayer(d, 2, use_flash=True)
+    tl = TLayer(d, 2, use_flash=True).eval()  # deterministic, as the JAX layer's default
     lin = lambda n: np.asarray(params[n]["kernel"]).T  # noqa: E731
     sd = {
         "self_attn.in_proj_weight": np.concatenate([lin(n) for n in ("q_proj", "k_proj", "v_proj")]),

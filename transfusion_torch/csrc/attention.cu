@@ -1,12 +1,17 @@
 // K2: self-attention forward with a key-padding bias, [B, N, H, D] layout.
 //
 // Replaces the Pallas kernel transfusion_tpu/ops/attention.py:226
-// (_fwd_kernel, launched by _flash_fwd at :372 for flash_attention_train),
-// at dropout rate 0 (eval). It computes
+// (_fwd_kernel, launched by _flash_fwd at :372 for flash_attention_train).
+// It computes
 //   o = softmax(q k^T * scale + bias_key) v,   bias_key = 0 or -1e30,
 // dividing by the row sum l after the P.V product, and writes the per-row
-// f32 softmax statistics (m, l) to stats[B, H, N, 2] for the backward pass
-// of a later port.
+// f32 softmax statistics (m, l) to stats[B, H, N, 2] for the backward
+// kernels (attention_bwd.cu). With dropout (training), each probability is
+// kept by the hash of dropout.cuh and scaled by 1 / (1 - rate) before the
+// P.V product, while l and the stored (m, l) stay those of the undropped
+// probabilities, as in the TPU kernel (attention.py:238-250). Dropout is a
+// compile-time variant, so the eval (rate 0) instantiation carries none of
+// its code.
 //
 // Bound on the H100: operations. At the fusion stack's level 0 (B 8,
 // N 3136, H 4, D 224) one call is 4 B H N^2 D = 0.28 TFLOP against 0.04 GB
@@ -36,22 +41,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dropout.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kHeadDimCap = 256;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // exp(a - b) that is 0 when a is -inf (a key past N or an empty running max).
 __device__ __forceinline__ float exp_diff(float a, float b) {
@@ -61,75 +57,17 @@ __device__ __forceinline__ float exp_diff(float a, float b) {
 // ---------------------------------------------------------------- bf16 path
 constexpr int kBQ = 64, kBK = 64;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait1() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d[16x8] += a[16x16] b[16x8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// exp(a - b) on the fast path, 0 when a is -inf (a key past N).
-__device__ __forceinline__ float fast_exp_diff(float a, float b) {
-  return a == -INFINITY ? 0.f : __expf(a - b);
-}
-
-// Start copying rows [row0, row0 + rows) of one head into shared memory
-// (row pitch kD + 8); rows at or past n are zero-filled.
-template <int kD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                size_t row_stride, int row0, int rows, int n) {
-  constexpr int vecs = kD / 8, ld = kD + 8;
-  for (int idx = threadIdx.x; idx < rows * vecs; idx += kThreads) {
-    const int r = idx / vecs, c = (idx - r * vecs) * 8;
-    __nv_bfloat16* s = dst + r * ld + c;
-    if (row0 + r < n)
-      cp_async16(s, src + (size_t)(row0 + r) * row_stride + c);
-    else
-      *reinterpret_cast<uint4*>(s) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 size_t smem_bf16(int d) { return sizeof(__nv_bfloat16) * (size_t)(kBQ + 2 * kBK) * (d + 8); }
 
 // The head dim kD is a compile-time constant: every loop over it unrolls
 // without guards, so the compiler can overlap one step's ldmatrix with the
 // previous step's mma.
-template <int kD>
+template <int kD, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 2)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
               __nv_bfloat16* __restrict__ out, float* __restrict__ stats,
-              int n, int nh, float scale) {
+              int n, int nh, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
   static_assert(kD % 16 == 0 && kD <= kHeadDimCap, "head dim");
   constexpr int kNT = kD / 8;   // 8-wide column tiles of the output accumulator
   constexpr int kST = kBK / 8;  // 8-key column tiles of a score tile
@@ -148,11 +86,18 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const size_t head_off = (size_t)b * n * row_stride + (size_t)h * kD;
   const float* key_bias = bias + (size_t)b * n;
   const int r0 = warp * 16;
+  // Dropout hash inputs of rows g and g + 8 (unused at rate 0).
+  uint32_t drop_a = 0, drop_b = 0;
+  if constexpr (kDropout) {
+    const uint32_t cell = (uint32_t)(b * nh + h);
+    drop_a = dropout_row((uint32_t)(q0 + r0 + g), seed, cell);
+    drop_b = dropout_row((uint32_t)(q0 + r0 + g + 8), seed, cell);
+  }
 
-  load_tile_async<kD>(Qs, q + head_off, row_stride, q0, kBQ, n);
-  load_tile_async<kD>(Ks, k + head_off, row_stride, 0, kBK, n);
+  load_tile_async<kD, kThreads>(Qs, q + head_off, row_stride, q0, kBQ, n);
+  load_tile_async<kD, kThreads>(Ks, k + head_off, row_stride, 0, kBK, n);
   cp_async_commit();
-  load_tile_async<kD>(Vs, v + head_off, row_stride, 0, kBK, n);
+  load_tile_async<kD, kThreads>(Vs, v + head_off, row_stride, 0, kBK, n);
   cp_async_commit();
 
   float o[kNT][4];
@@ -192,7 +137,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       }
     }
     __syncthreads();  // every warp is done with this K tile: fetch the next
-    if (k0 + kBK < n) load_tile_async<kD>(Ks, k + head_off, row_stride, k0 + kBK, kBK, n);
+    if (k0 + kBK < n) load_tile_async<kD, kThreads>(Ks, k + head_off, row_stride, k0 + kBK, kBK, n);
     cp_async_commit();
 
     // Online softmax over rows g and g + 8; a row's 64 keys are spread over
@@ -221,10 +166,17 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     float ps[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < kST; ++j) {
-      const float p0 = fast_exp_diff(s[j][0], mx[0]), p1 = fast_exp_diff(s[j][1], mx[0]);
-      const float p2 = fast_exp_diff(s[j][2], mx[1]), p3 = fast_exp_diff(s[j][3], mx[1]);
+      float p0 = fast_exp_diff(s[j][0], mx[0]), p1 = fast_exp_diff(s[j][1], mx[0]);
+      float p2 = fast_exp_diff(s[j][2], mx[1]), p3 = fast_exp_diff(s[j][3], mx[1]);
       ps[0] += p0 + p1;
       ps[1] += p2 + p3;
+      if constexpr (kDropout) {  // l keeps the undropped sum
+        const uint32_t key = (uint32_t)(k0 + j * 8 + 2 * t);
+        p0 = dropout_keep(drop_a, key, thresh) ? p0 * inv_keep : 0.f;
+        p1 = dropout_keep(drop_a, key + 1, thresh) ? p1 * inv_keep : 0.f;
+        p2 = dropout_keep(drop_b, key, thresh) ? p2 * inv_keep : 0.f;
+        p3 = dropout_keep(drop_b, key + 1, thresh) ? p3 * inv_keep : 0.f;
+      }
       pa[j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
       pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
     }
@@ -252,7 +204,7 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       }
     }
     __syncthreads();  // every warp is done with this V tile: fetch the next
-    if (k0 + kBK < n) load_tile_async<kD>(Vs, v + head_off, row_stride, k0 + kBK, kBK, n);
+    if (k0 + kBK < n) load_tile_async<kD, kThreads>(Vs, v + head_off, row_stride, k0 + kBK, kBK, n);
     cp_async_commit();
   }
 
@@ -287,31 +239,35 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-template <int kD>
+template <int kD, bool kDropout>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* out,
-                        void* stats, int bsz, int n, int nh, float scale, cudaStream_t s) {
+                        void* stats, int bsz, int n, int nh, float scale, uint32_t seed,
+                        uint32_t thresh, float inv_keep, cudaStream_t s) {
   const size_t smem = smem_bf16(kD);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_bf16<kD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto* kernel = attn_fwd_bf16<kD, kDropout>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err == cudaSuccess)  // all of the SM's shared memory, so two blocks fit
-    err = cudaFuncSetAttribute(attn_fwd_bf16<kD>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kBQ - 1) / kBQ, nh, bsz);
-  attn_fwd_bf16<kD><<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const float*)bias, (__nv_bfloat16*)out, (float*)stats, n, nh, scale);
+      (const float*)bias, (__nv_bfloat16*)out, (float*)stats, n, nh, scale, seed, thresh,
+      inv_keep);
   return cudaSuccess;
 }
 
 // ----------------------------------------------------------------- f32 path
 constexpr int kFQ = 32, kFK = 32;
 
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ bias,
              float* __restrict__ out, float* __restrict__ stats,
-             int n, int nh, int d, float scale) {
+             int n, int nh, int d, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = d + 1;
   float* Qs = reinterpret_cast<float*>(smem);
@@ -356,7 +312,12 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float m_new = fmaxf(m_old, warp_max(s));
       const float p = exp_diff(s, m_new);
       const float psum = warp_sum(p);
-      Ps[r * (kFK + 1) + lane] = p;
+      if constexpr (kDropout) {
+        const uint32_t row = dropout_row((uint32_t)(q0 + r), seed, (uint32_t)(b * nh + h));
+        Ps[r * (kFK + 1) + lane] = dropout_keep(row, (uint32_t)(k0 + lane), thresh) ? p * inv_keep : 0.f;
+      } else {
+        Ps[r * (kFK + 1) + lane] = p;
+      }
       if (lane == 0) {
         const float alpha = exp_diff(m_old, m_new);
         row_alpha[r] = alpha;
@@ -389,27 +350,46 @@ size_t smem_f32(int d) {
   return sizeof(float) * ((size_t)(2 * kFQ + 2 * kFK) * ld + kFQ * (kFK + 1) + 3 * kFQ);
 }
 
+template <bool kDropout>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out,
+                       void* stats, int bsz, int n, int nh, int d, float scale, uint32_t seed,
+                       uint32_t thresh, float inv_keep, cudaStream_t s) {
+  const size_t smem = smem_f32(d);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<kDropout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kFQ - 1) / kFQ, nh, bsz);
+  attn_fwd_f32<kDropout><<<grid, kThreads, smem, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out,
+      (float*)stats, n, nh, d, scale, seed, thresh, inv_keep);
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// seed, thresh and inv_keep are read only when dropout is non-zero: seed is
+// the int32 seed reinterpreted as uint32, thresh = uint32(rate * 4294967295),
+// inv_keep = 1 / (1 - rate).
 extern "C" int tf_attention_fwd(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, void* stats, int bsz, int n, int nh, int d,
-                                float scale, int is_bf16, void* stream) {
+                                float scale, int is_bf16, unsigned seed, unsigned thresh,
+                                float inv_keep, int dropout, void* stream) {
   if (bsz <= 0 || n <= 0 || nh <= 0 || d <= 0 || d > kHeadDimCap) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   if (is_bf16) {
     // The flagship's head dim (896 / 4 heads), BF16_HEAD_DIMS in ops/attention.py.
     if (d != 224) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = launch_bf16<224>(q, k, v, bias, out, stats, bsz, n, nh, scale, s);
-    if (err != cudaSuccess) return (int)err;
+    err = dropout ? launch_bf16<224, true>(q, k, v, bias, out, stats, bsz, n, nh, scale, seed,
+                                           thresh, inv_keep, s)
+                  : launch_bf16<224, false>(q, k, v, bias, out, stats, bsz, n, nh, scale, 0u, 0u,
+                                            1.f, s);
   } else {
-    const size_t smem = smem_f32(d);
-    cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((n + kFQ - 1) / kFQ, nh, bsz);
-    attn_fwd_f32<<<grid, kThreads, smem, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out,
-        (float*)stats, n, nh, d, scale);
+    err = dropout ? launch_f32<true>(q, k, v, bias, out, stats, bsz, n, nh, d, scale, seed, thresh,
+                                     inv_keep, s)
+                  : launch_f32<false>(q, k, v, bias, out, stats, bsz, n, nh, d, scale, 0u, 0u, 1.f,
+                                      s);
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

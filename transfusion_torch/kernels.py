@@ -37,16 +37,29 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+# Dropout arguments of the attention entries: seed (uint32), keep threshold
+# (uint32), 1 / (1 - rate), dropout on (int).
+_DROP = [_U, _U, _F, _I]
 _SIGNATURES = {
     # x, residual (or NULL), weight, bias, out, rows, d, eps, is_bf16, stream
     "tf_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     # q, k, v, key bias [B, N] f32, out, stats [B, H, N, 2] f32, B, N, H, D,
-    # scale, is_bf16, stream
-    "tf_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # scale, is_bf16, dropout..., stream
+    "tf_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],
+    # q, k, v, o, dout, key bias, stats, dq, B, N, H, D, scale, is_bf16,
+    # dropout..., stream
+    "tf_attention_bwd_dq": [_P] * 8 + [_I, _I, _I, _I, _F, _I, *_DROP, _P],
+    # q, k, v, o, dout, key bias, stats, dk, dv, B, N, H, D, scale, is_bf16,
+    # dropout..., stream
+    "tf_attention_bwd_dkv": [_P] * 9 + [_I, _I, _I, _I, _F, _I, *_DROP, _P],
     # packed pyramid, per-RoI floats [B, R, 8], per-RoI ints [B, R, 4], out,
     # B, R, H_tot, W_max, C, P, is_bf16, stream
     "tf_roi_align_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # grad_out [B, R, P, P, C], per-RoI floats, per-RoI ints, f32 grad
+    # accumulator [B, H_tot, W_max, C], B, R, H_tot, W_max, C, P, is_bf16, stream
+    "tf_roi_align_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

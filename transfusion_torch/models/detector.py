@@ -1,8 +1,11 @@
 """Faster R-CNN assembly with the reference's three-phase seam (port of
-``transfusion_tpu/models/detector.py``, eval): ``forward_features``
-(backbone body), ``apply_fpn`` and ``apply_rpn_roi``, so the fusion can
-rewrite backbone maps before the FPN. Postprocessing is the separate
-function :func:`detections_from_outputs`.
+``transfusion_tpu/models/detector.py``): ``forward_features`` (backbone
+body), ``apply_fpn`` and ``apply_rpn_roi``, so the fusion can rewrite
+backbone maps before the FPN. With ``train=True`` the RPN keeps its training
+proposal counts and targets are assigned: anchor labels for the RPN loss and
+sampled RoIs with triple labels and regression targets for the heads; the
+module's training mode turns dropout on, as ``deterministic=False`` does in
+JAX. Postprocessing is the separate function :func:`detections_from_outputs`.
 
 Top-level names are the reference checkpoint's: ``backbone.body``,
 ``backbone.fpn``, ``rpn.head``, ``roi_heads``.
@@ -18,8 +21,12 @@ from torch import nn
 from transfusion_torch.device import resolve_device
 from transfusion_torch.models.fpn import FPN
 from transfusion_torch.models.resnet import RESNET50_CHANNELS, ResNet
-from transfusion_torch.models.roi_heads import RoIConfig, RoIHeads, postprocess_detections
-from transfusion_torch.models.rpn import RPNConfig, RPNHead, generate_proposals
+from transfusion_torch.models.roi_heads import (RoIConfig, RoIHeads, postprocess_detections,
+                                                select_training_samples)
+from transfusion_torch.models.rpn import (RPNConfig, RPNHead, assign_targets_to_anchors,
+                                          generate_proposals)
+from transfusion_torch.models.text_encoder import dropout
+from transfusion_torch.ops.matcher import uniform_draws
 from transfusion_torch.ops.roi_align import multiscale_roi_align
 
 POOLED = 7
@@ -33,13 +40,16 @@ class DetectorConfig:
     stride_in_1x1: bool = True  # adapt_to_detectron
     stage_sizes: tuple = (3, 4, 6, 3)
     s2d_stem: bool = False
+    # Frozen-prefix tape cut (units [stem, layer1..layer4]); the flagship
+    # trains with 5: the body never unfreezes.
+    stop_grad_stages: int = 0
     dtype: torch.dtype = torch.float32
 
 
 class _Backbone(nn.Module):
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype)
+        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype, cfg.stop_grad_stages)
         chans = [RESNET50_CHANNELS[str(i)] for i in range(len(cfg.stage_sizes))]
         self.fpn = FPN(chans, cfg.fpn_out_channels, cfg.dtype)
 
@@ -77,19 +87,44 @@ class FasterRCNN(nn.Module):
     def apply_fpn(self, feats):
         return self.backbone.fpn(feats)
 
-    def apply_rpn_roi(self, fpn_feats, image_hw):
-        """RPN + RoI heads over FPN maps (eval: every proposal, no sampling).
-        Returns {"roi_outputs", "proposals", "image_sizes"}."""
+    def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
+                      draws=None, generator=None):
+        """RPN + RoI heads over FPN maps. Eval: every proposal. ``train``:
+        targets {boxes [B, G, 4], nouns, verbs, ttcs, valid [B, G]} are
+        assigned and S RoIs an image sampled with ``draws`` (positive and
+        negative uniform keys [B, P + G]), drawn from ``generator`` when not
+        given. Returns {"roi_outputs", "proposals", "image_sizes"}; in
+        training roi_outputs also carries labels (nouns, verbs, ttcs) and
+        reg_targets, and proposals the anchor labels and matches."""
         objectness, deltas = self.rpn.head(fpn_feats)
-        rpn_out = generate_proposals(objectness, deltas, image_hw, self.cfg.rpn)
-        rois, roi_valid = rpn_out["boxes"], rpn_out["valid"]
+        rpn_out = generate_proposals(objectness, deltas, image_hw, self.cfg.rpn, train)
+        sampled = None
+        if train:
+            dev = self.device
+            targets = {k: v.to(dev) for k, v in targets.items()}
+            rpn_out["labels"], rpn_out["matches"] = assign_targets_to_anchors(
+                rpn_out["anchors"], targets["boxes"].float(), targets["valid"].bool(), self.cfg.rpn)
+            if draws is None:
+                n = rpn_out["boxes"].shape[1] + targets["boxes"].shape[1]
+                draws = uniform_draws((rpn_out["boxes"].shape[0], n), generator, dev)
+            sampled = select_training_samples(rpn_out["boxes"], rpn_out["valid"], targets,
+                                              self.cfg.roi, draws)
+            rois, roi_valid = sampled["rois"], sampled["valid"]
+        else:
+            rois, roi_valid = rpn_out["boxes"], rpn_out["valid"]
         levels = {k: v.permute(0, 2, 3, 1) for k, v in fpn_feats.items() if k.isdigit()}
         pooled = multiscale_roi_align(levels, rois, image_hw)
+        pooled = dropout(pooled, self.cfg.roi.box_1_dropout, self.training)
         roi_outputs = {**self.roi_heads(pooled), "proposals": rois, "proposals_valid": roi_valid}
+        if sampled is not None:
+            roi_outputs["labels"] = (sampled["nouns"], sampled["verbs"], sampled["ttcs"])
+            roi_outputs["reg_targets"] = sampled["reg_targets"]
         return {"roi_outputs": roi_outputs, "proposals": rpn_out, "image_sizes": tuple(image_hw)}
 
-    def forward(self, images, image_hw):
-        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images)), image_hw)
+    def forward(self, images, image_hw, targets=None, train: bool = False, draws=None,
+                generator=None):
+        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images)), image_hw,
+                                  targets, train, draws, generator)
 
 
 def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None):

@@ -1,5 +1,5 @@
 """Per-FPN-level vision-language cross fusion (port of
-``transfusion_tpu/models/fusion.py``, eval).
+``transfusion_tpu/models/fusion.py``).
 
 Each selected backbone map is patchified by a conv into tokens, given
 sin1d positions and a learned image-kind embedding, concatenated with the
@@ -13,11 +13,15 @@ embeddings, ``t_encoder.layers.j`` (torch ``TransformerEncoderLayer`` names)
 and ``final_norm_layer``; the patch convs and back-projections live beside
 it on the model (``patches_to_token.i``, ``tokens_to_features.i.linear``).
 
-Attention takes kernel K2 exactly where the JAX model takes its Pallas
-kernel: no attention mask, ``use_flash`` set and a sequence of at least 2048
-tokens (``transfusion_tpu/models/fusion.py:161``). Shorter levels take the
-plain path, which masks with -1e9 and scales in the compute dtype as XLA's
-path does. norm1/norm2/final_norm use kernel K1.
+Attention takes kernels K2 (forward) and K3/K4 (backward) exactly where the
+JAX model takes its Pallas kernels: no attention mask, ``use_flash`` set and
+a sequence of at least 2048 tokens (``transfusion_tpu/models/fusion.py:161``);
+in training K2 drops attention probabilities at ``token_dropout`` with a
+seed drawn per layer and call from torch's default generator. Shorter
+levels take the plain path, which masks with -1e9 and scales in the compute
+dtype as XLA's path does. norm1/norm2/final_norm use kernel K1 in eval and
+the plain LayerNorm in training (:mod:`transfusion_torch.ops.layer_norm`).
+Training mode also turns on the dropout sites of ``fusion.py:187-204,268,309``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from transfusion_torch.models.resnet import conv
-from transfusion_torch.models.text_encoder import linear
-from transfusion_torch.ops.attention import attention_fwd
+from transfusion_torch.models.text_encoder import dropout, linear
+from transfusion_torch.ops.attention import flash_attention_train
 from transfusion_torch.ops.layer_norm import FusedLayerNorm
 
 MAX_NUM_PATCHES = 8192
@@ -87,15 +91,21 @@ class MultiheadSelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
 
+def draw_seed() -> int:
+    """An int32 dropout seed from torch's default (CPU) generator: no device
+    synchronisation, reproducible under ``torch.manual_seed``."""
+    return int(torch.randint(-2 ** 31, 2 ** 31, ()))
+
+
 class EncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer``, post-norm, exact GELU, batch
-    first, eval."""
+    first; ``dropout_rate`` at its four sites in training mode."""
 
     def __init__(self, dim: int, num_heads: int, ff_multiplier: float = 2.0,
-                 dtype=torch.float32, use_flash: bool = False):
+                 dtype=torch.float32, use_flash: bool = False, dropout_rate: float = 0.1):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
-        self.use_flash = use_flash
+        self.use_flash, self.dropout_rate = use_flash, dropout_rate
         self.self_attn = MultiheadSelfAttention(dim)
         self.linear1 = nn.Linear(dim, int(dim * ff_multiplier))
         self.linear2 = nn.Linear(int(dim * ff_multiplier), dim)
@@ -110,21 +120,22 @@ class EncoderLayer(nn.Module):
         xd = x.to(dt)
         q, k, v = (F.linear(xd, w[i * d:(i + 1) * d], bias[i * d:(i + 1) * d])
                    .reshape(b, l, self.num_heads, hd) for i in range(3))
+        rate = self.dropout_rate if self.training else 0.0
         if attn_mask is None and self.use_flash and l >= FLASH_MIN_LEN:
-            ctx = attention_fwd(q, k, v, key_padding_mask).reshape(b, l, d)
+            seed = draw_seed() if rate > 0.0 else 0
+            ctx = flash_attention_train(q, k, v, key_padding_mask, rate, seed).reshape(b, l, d)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(hd ** 0.5, dtype=dt)
             if key_padding_mask is not None:
                 scores = scores.masked_fill(key_padding_mask[:, None, None, :], -1e9)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask[None, None], -1e9)
-            probs = torch.softmax(scores, dim=-1)
+            probs = dropout(torch.softmax(scores, dim=-1), rate, True)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, d)
-        attn_out = linear(ctx, self.self_attn.out_proj, dt)
+        attn_out = dropout(linear(ctx, self.self_attn.out_proj, dt), rate, True)
         x = self.norm1(x, residual=attn_out)
-        h = linear(x, self.linear1, dt)
-        h = F.gelu(h)
-        h = linear(h, self.linear2, dt)
+        h = dropout(F.gelu(linear(x, self.linear1, dt)), rate, True)
+        h = dropout(linear(h, self.linear2, dt), rate, True)
         return self.norm2(x, residual=h)
 
 
@@ -148,14 +159,16 @@ class CrossFusionLevel(nn.Module):
 
     def __init__(self, token_dim: int, num_layers: int, num_heads: int, ff_multiplier: float,
                  patch_hw: tuple, vis_mask_type: str = "global", use_flash: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, token_dropout: float = 0.15, patch_dropout: float = 0.1,
+                 backproj_dropout: float = 0.1):
         super().__init__()
         self.patch_hw, self.vis_mask_type, self.dtype = patch_hw, vis_mask_type, dtype
+        self.patch_dropout, self.backproj_dropout = patch_dropout, backproj_dropout
         self.pos = PositionalEmbedding(token_dim)
         self.image_kind_embedding = nn.Parameter(torch.randn(1, 1, token_dim))
         self.lang_kind_embedding = nn.Parameter(torch.randn(1, 1, token_dim))
         self.t_encoder = _TEncoder([
-            EncoderLayer(token_dim, num_heads, ff_multiplier, dtype, use_flash)
+            EncoderLayer(token_dim, num_heads, ff_multiplier, dtype, use_flash, token_dropout)
             for _ in range(num_layers)
         ])
         self.final_norm_layer = FusedLayerNorm(token_dim, dtype=dtype)
@@ -169,7 +182,7 @@ class CrossFusionLevel(nn.Module):
         gh, gw = vis.shape[2:]
         n = gh * gw
         vis = self.pos(vis.flatten(2).transpose(1, 2))      # [B, n, D]
-        vis = vis + self.image_kind_embedding
+        vis = dropout(vis + self.image_kind_embedding, self.patch_dropout, self.training)
         lang = lang_tokens + self.lang_kind_embedding
         # The first consumers (projections, norm1) cast to the compute dtype.
         x = torch.cat([vis, lang], dim=1).to(self.dtype)
@@ -183,7 +196,7 @@ class CrossFusionLevel(nn.Module):
             attn_mask = torch.from_numpy(joint).to(x.device)
         for layer in self.t_encoder.layers:
             x = layer(x, key_padding_mask=pad, attn_mask=attn_mask)
-        vis_out = self.final_norm_layer(x[:, :n])
+        vis_out = dropout(self.final_norm_layer(x[:, :n]), self.backproj_dropout, self.training)
         # RegroupPatchesLayerBox: linear -> fold with (C, ph, pw) channel blocks.
         y = linear(vis_out, back_proj.linear, self.dtype)
         y = y.reshape(b, gh, gw, c, ph, pw).permute(0, 3, 1, 4, 2, 5).reshape(b, c, gh * ph, gw * pw)

@@ -5,10 +5,17 @@ Module and buffer names follow torchvision's ``resnet_fpn_backbone`` body
 (``conv1``/``bn1``/``layerN.i.convK``/``bnK``/``downsample.{0,1}``) so the
 state dict is the reference checkpoint's. Tensors are NCHW in the
 channels-last memory format; weights stay f32 and are cast to the compute
-dtype at use, as the JAX modules do.
+dtype at use, as the JAX modules do. ``stop_grad_prefix`` cuts the tape
+after the first units [stem, layer1..layer4] as the JAX package's
+``stop_gradient`` does (resnet.py:178-199): a cut unit and everything before
+it run without autograd, which gives the same gradients (nothing upstream of
+the cut trains) without recording the tape; at 5, the flagship's, the whole
+body runs without one.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -73,9 +80,10 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """forward(x NCHW) -> {"0": C2, "1": C3, "2": C4, "3": C5} (strides 4..32)."""
 
-    def __init__(self, stage_sizes=(3, 4, 6, 3), stride_in_1x1: bool = True, dtype=torch.float32):
+    def __init__(self, stage_sizes=(3, 4, 6, 3), stride_in_1x1: bool = True, dtype=torch.float32,
+                 stop_grad_prefix: int = 0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.stop_grad_prefix = dtype, stop_grad_prefix
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         cin, mid = 64, 64
@@ -92,11 +100,17 @@ class ResNet(nn.Module):
             self.stage_names.append(name)
             mid *= 2
 
+    def _tape(self, unit: int):
+        """No autograd for unit ``unit`` (0 = stem) when the cut is past it."""
+        return torch.no_grad() if unit < self.stop_grad_prefix else contextlib.nullcontext()
+
     def forward(self, x):
-        h = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
-        h = F.max_pool2d(h, 3, stride=2, padding=1)
+        with self._tape(0):
+            h = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
+            h = F.max_pool2d(h, 3, stride=2, padding=1)
         feats = {}
         for i, name in enumerate(self.stage_names):
-            h = getattr(self, name)(h)
+            with self._tape(i + 1):
+                h = getattr(self, name)(h)
             feats[str(i)] = h
         return feats

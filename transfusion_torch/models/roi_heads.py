@@ -1,5 +1,6 @@
-"""RoI box head, predictors and static-shape detection postprocess (port of
-``transfusion_tpu/models/roi_heads.py``, eval). Names follow the reference:
+"""RoI box head, predictors, training-sample selection and static-shape
+detection postprocess (port of ``transfusion_tpu/models/roi_heads.py``).
+Names follow the reference:
 ``box_head.fc6``/``fc7`` (fc6 reads the pooled features flattened as
 (C, y, x)), ``noun_classifier``, ``verb_classifier``, ``box_regressor.1``,
 ``ttc_pred_layer``."""
@@ -13,9 +14,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from transfusion_torch.models.rpn import top_k_stable
-from transfusion_torch.models.text_encoder import linear
-from transfusion_torch.ops.boxes import BoxCoder, clip_boxes, small_box_mask
+from transfusion_torch.models.text_encoder import dropout, linear
+from transfusion_torch.ops.boxes import BoxCoder, box_iou, clip_boxes, small_box_mask
+from transfusion_torch.ops.matcher import balanced_sample_idx, match_proposals
 from transfusion_torch.ops.nms import class_nms_multi
+
+IGNORE_VERB_IDX_BG = 999  # the background verb / ttc code of sampled rows
 
 
 @dataclass(frozen=True)
@@ -23,10 +27,17 @@ class RoIConfig:
     num_nouns: int = 88
     num_verbs: int = 75
     representation_size: int = 1024
+    fg_iou_thresh: float = 0.5
+    bg_iou_thresh: float = 0.5
+    batch_size_per_image: int = 128
+    positive_fraction: float = 0.25
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     detections_per_img: int = 100
     min_size: float = 1e-2
+    box_1_dropout: float = 0.0
+    box_2_dropout: float = 0.0
+    classif_dropout: float = 0.0
     ttc_on: bool = False
     additional_postprocessing: bool = False
     min_ttc: float = 0.251
@@ -57,17 +68,20 @@ class BoxHead(nn.Module):
 
 def predictors(heads, box_features, cfg: RoIConfig, dtype):
     """The reference's box_regressor / noun / verb / ttc heads over box
-    features; ``heads`` is the module holding them."""
-    box_regression = linear(box_features, heads.box_regressor[1], dtype)
-    class_logits = linear(box_features, heads.noun_classifier, dtype)
-    verb_logits = linear(box_features, heads.verb_classifier, dtype)
-    ttcs = F.softplus(linear(box_features, heads.ttc_pred_layer, dtype))[..., 0] if cfg.ttc_on else None
+    features; ``heads`` is the module holding them (its training mode turns
+    the box_2 / classif dropouts on)."""
+    h = dropout(box_features, cfg.box_2_dropout, heads.training)
+    box_regression = linear(h, heads.box_regressor[1], dtype)
+    h = dropout(box_features, cfg.classif_dropout, heads.training)
+    class_logits = linear(h, heads.noun_classifier, dtype)
+    verb_logits = linear(h, heads.verb_classifier, dtype)
+    ttcs = F.softplus(linear(h, heads.ttc_pred_layer, dtype))[..., 0] if cfg.ttc_on else None
     return {
         "class_logits": class_logits,
         "verb_logits": verb_logits,
         "box_regression": box_regression,
         "ttcs": ttcs,
-        "box_features": box_features,
+        "box_features": h,
     }
 
 
@@ -91,6 +105,49 @@ class RoIHeads(nn.Module):
 
 def _take(x, idx):
     return torch.gather(x, 1, idx)
+
+
+def select_training_samples(proposals, prop_valid, targets: dict, cfg: RoIConfig, draws):
+    """A fixed set of S = batch_size_per_image training RoIs per image with
+    triple labels: the GT boxes are appended to the proposals, matched by IoU
+    (fg/bg thresholds), background rows get noun 0 / verb 999 / ttc 999 and
+    between-threshold rows -1, then positives and negatives are sampled with
+    ``draws`` (positive keys, negative keys) [B, P + G]. Returns [B, S, ...]
+    rois, nouns, verbs, ttcs, reg_targets and valid; padding slots carry
+    labels -1 and zeros."""
+    s = cfg.batch_size_per_image
+    boxes = targets["boxes"].float()
+    gvalid = targets["valid"].bool()
+    all_props = torch.cat([proposals.detach().float(), boxes], 1)
+    all_valid = torch.cat([prop_valid, gvalid], 1)
+    iou = box_iou(boxes, all_props)
+    iou = torch.where(all_valid[:, None, :], iou, torch.full_like(iou, -1.0))
+    matches = match_proposals(iou, gvalid, cfg.fg_iou_thresh, cfg.bg_iou_thresh, False)
+    clamped = torch.clamp(matches, min=0)
+    fg, bg = matches >= 0, matches == -1
+
+    def label(values, bg_code, fill):
+        x = torch.where(fg, _take(values, clamped), torch.where(bg, bg_code, fill).to(values.dtype))
+        return torch.where(gvalid.any(-1, keepdim=True), x, torch.full_like(x, bg_code))
+
+    noun_l = label(targets["nouns"].long(), 0, -1)
+    verb_l = label(targets["verbs"].long(), IGNORE_VERB_IDX_BG, -1)
+    ttc_l = label(targets["ttcs"].float(), float(IGNORE_VERB_IDX_BG), -1.0)
+    noun_l = torch.where(all_valid, noun_l, -1)
+
+    order, sampled_valid = balanced_sample_idx(noun_l, all_valid, draws, s, cfg.positive_fraction)
+    rois = torch.gather(all_props, 1, order[..., None].expand(-1, -1, 4))
+    matched_gt = torch.gather(boxes, 1, _take(clamped, order)[..., None].expand(-1, -1, 4))
+    reg_targets = BOX_CODER.encode(matched_gt, rois)
+    v4 = sampled_valid[..., None]
+    return {
+        "rois": torch.where(v4, rois, torch.zeros_like(rois)),
+        "nouns": torch.where(sampled_valid, _take(noun_l, order), -1),
+        "verbs": torch.where(sampled_valid, _take(verb_l, order), -1),
+        "ttcs": torch.where(sampled_valid, _take(ttc_l, order), -1.0),
+        "reg_targets": torch.where(v4, reg_targets, torch.zeros_like(reg_targets)),
+        "valid": sampled_valid,
+    }
 
 
 def postprocess_detections(outputs: dict, proposals, prop_valid, image_hw, cfg: RoIConfig,

@@ -1,5 +1,7 @@
 """BERT/MiniLM encoder and the narration pooling layer (port of
-``transfusion_tpu/models/text_encoder.py``, eval, tokens mode).
+``transfusion_tpu/models/text_encoder.py``, tokens mode). Training mode
+turns on the JAX modules' dropout sites (embeddings, attention
+probabilities, attention and feed-forward outputs, after ``out_mlp``).
 
 Parameter names follow huggingface ``BertModel`` under the reference's
 ``narr_pooling_layer.encoder.0.auto_model`` prefix, so the state dict is the
@@ -29,6 +31,7 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    dropout: float = 0.1
 
     @classmethod
     def minilm_l12(cls) -> "BertConfig":
@@ -39,6 +42,12 @@ def linear(x, mod: nn.Linear, dtype):
     """A linear layer in the compute dtype with f32 parameters cast at use."""
     b = None if mod.bias is None else mod.bias.to(dtype)
     return F.linear(x.to(dtype), mod.weight.to(dtype), b)
+
+
+def dropout(x, rate: float, training: bool):
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+    1 / (1 - rate) in training; the identity otherwise or at rate 0."""
+    return F.dropout(x, rate, True) if training and rate > 0.0 else x
 
 
 def flax_layer_norm(x, mod: nn.LayerNorm, dtype):
@@ -101,12 +110,12 @@ class BertLayer(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(hd ** 0.5, dtype=dt)
         scores = torch.where(mask[:, None, None, :] > 0, scores,
                              torch.tensor(-1e9, dtype=scores.dtype, device=scores.device))
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), c.dropout, self.training)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, c.hidden_size)
-        attn = linear(ctx, self.attention.output.dense, dt)
+        attn = dropout(linear(ctx, self.attention.output.dense, dt), c.dropout, self.training)
         h = flax_layer_norm(h + attn, self.attention.output.LayerNorm, dt)
         inter = F.gelu(linear(h, self.intermediate.dense, dt))
-        out = linear(inter, self.output.dense, dt)
+        out = dropout(linear(inter, self.output.dense, dt), c.dropout, self.training)
         return flax_layer_norm(h + out, self.output.LayerNorm, dt)
 
 
@@ -130,7 +139,7 @@ class BertEncoder(nn.Module):
         l = input_ids.shape[1]
         word = e.word_embeddings.weight.to(self.dtype)[input_ids]
         h = word + e.position_embeddings.weight[:l][None] + e.token_type_embeddings.weight[0][None, None]
-        h = flax_layer_norm(h, e.LayerNorm, self.dtype)
+        h = dropout(flax_layer_norm(h, e.LayerNorm, self.dtype), self.cfg.dropout, self.training)
         for layer in self.encoder.layer:
             h = layer(h, attention_mask)
         return h
@@ -153,9 +162,10 @@ class NarrationEncoder(nn.Module):
     """SBertLayer in tokens mode: BERT tokens -> out_mlp. Returns (tokens,
     attention_mask). Keys: ``encoder.0.auto_model.*`` and ``out_mlp``."""
 
-    def __init__(self, c: BertConfig, out_mlp: int | None = 896, dtype=torch.float32):
+    def __init__(self, c: BertConfig, out_mlp: int | None = 896, dtype=torch.float32,
+                 out_dropout: float = 0.1):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.out_dropout = dtype, out_dropout
         self.encoder = nn.ModuleList([_SentenceTransformer(c, dtype)])
         self.out_mlp = (
             nn.Linear(c.hidden_size, out_mlp) if out_mlp and out_mlp != c.hidden_size else None
@@ -165,4 +175,4 @@ class NarrationEncoder(nn.Module):
         tokens = self.encoder[0].auto_model(input_ids, attention_mask)
         if self.out_mlp is not None:
             tokens = linear(tokens, self.out_mlp, self.dtype)
-        return tokens, attention_mask
+        return dropout(tokens, self.out_dropout, self.training), attention_mask

@@ -1,14 +1,16 @@
 """The TransFusion model: Faster R-CNN + narration encoder + per-level
-fusion (port of ``transfusion_tpu/models/transfusion.py``, eval path of the
+fusion (port of ``transfusion_tpu/models/transfusion.py``: the
 ``cross_transformer`` fusion with the ``sbert`` text encoder in ``tokens``
-mode and no LM head, the flagship's path).
+mode and no LM head, the flagship's path, for eval and training).
 
 ``TransFusion`` subclasses :class:`FasterRCNN` so its state dict has the
 reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
 ``patches_to_token.i``, ``tokens_to_features.i``,
 ``cross_fusion_encoders.i``, ``narr_pooling_layer.*``). ``forward`` takes
 the JAX batch contract: ``image [B, H, W, 3]``, ``input_ids``,
-``attention_mask`` and ``image_hw``.
+``attention_mask``, ``image_hw`` and, to train, ``targets``. As in JAX,
+``forward(batch, train=True)`` assigns targets and samples RoIs; dropout
+follows the module's ``.train()`` / ``.eval()`` mode.
 """
 
 from __future__ import annotations
@@ -39,6 +41,9 @@ class FusionConfig:
     ff_multiplier: float = 2.0
     vis_mask_type: str = "global"
     use_flash_attention: bool = False
+    token_dropout: float = 0.15
+    patch_dropout: float = 0.1
+    backproj_dropout: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -49,6 +54,7 @@ class TransFusionConfig:
     text_encoder: str = "sbert"
     narr_out_mode: str = "tokens"
     out_mlp: int | None = 896
+    out_dropout: float = 0.1
     lm_on: bool = False
     dtype: torch.dtype = torch.float32
 
@@ -64,6 +70,7 @@ def flagship_config() -> TransFusionConfig:
                           score_thresh=0.01, additional_postprocessing=True),
             rpn=RPNConfig(score_thresh=0.01),
             s2d_stem=False,
+            stop_grad_stages=5,
             dtype=dt,
         ),
         fusion=FusionConfig(use_flash_attention=True),
@@ -89,7 +96,7 @@ class TransFusion(FasterRCNN):
         super().__init__(cfg.detector, device=dev)
         self.tcfg = cfg
         f, dt = cfg.fusion, cfg.dtype
-        self.narr_pooling_layer = NarrationEncoder(cfg.bert, cfg.out_mlp, dt)
+        self.narr_pooling_layer = NarrationEncoder(cfg.bert, cfg.out_mlp, dt, cfg.out_dropout)
         token_dim = f.token_dim
         self.patches_to_token = nn.ModuleList()
         self.tokens_to_features = nn.ModuleList()
@@ -101,7 +108,8 @@ class TransFusion(FasterRCNN):
             self.tokens_to_features.append(RegroupPatches(token_dim, c, ph, pw))
             self.cross_fusion_encoders.append(CrossFusionLevel(
                 token_dim, f.num_layers[i], f.num_heads, f.ff_multiplier, (ph, pw),
-                f.vis_mask_type, f.use_flash_attention, dt,
+                f.vis_mask_type, f.use_flash_attention, dt, f.token_dropout, f.patch_dropout,
+                f.backproj_dropout,
             ))
         self.to(dev).eval()
 
@@ -118,6 +126,9 @@ class TransFusion(FasterRCNN):
                 feats[key], lang, lang_mask, self.patches_to_token[i], self.tokens_to_features[i])
         return self.apply_fpn(feats)
 
-    def forward(self, batch: dict):
-        """Returns {"roi_outputs", "proposals", "image_sizes"}."""
-        return self.apply_rpn_roi(self.trunk(batch), batch["image_hw"])
+    def forward(self, batch: dict, train: bool = False, draws=None, generator=None):
+        """Returns {"roi_outputs", "proposals", "image_sizes"} (see
+        ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws`` and
+        ``generator``)."""
+        return self.apply_rpn_roi(self.trunk(batch), batch["image_hw"], batch.get("targets"),
+                                  train, draws, generator)

@@ -1,16 +1,23 @@
-"""Self-attention forward in the projections' [B, N, H, D] layout: kernel K2
-and its plain version.
+"""Self-attention in the projections' [B, N, H, D] layout with probability
+dropout: kernel K2 (forward), kernels K3/K4 (backward) and their plain
+versions.
 
-Port of ``transfusion_tpu/ops/attention.py::flash_attention_train`` at
-dropout rate 0 (the eval path; Pallas ``_fwd_kernel`` at :226). Semantics:
-``softmax(q k^T / sqrt(D) + bias) v`` with an additive -1e30 bias on padded
-keys and an f32 scale, products in the input dtype with f32 accumulation,
-the probabilities rounded to the input dtype for the P.V product, and the
-row sum divided out after it. The per-row f32 statistics (m, l) come back in
-``[B, H, N, 2]`` when asked for.
+Port of ``transfusion_tpu/ops/attention.py::flash_attention_train`` (Pallas
+``_fwd_kernel`` at :226, ``_bwd_dq_kernel`` at :253, ``_bwd_dkv_kernel`` at
+:297). Forward: ``softmax(q k^T / sqrt(D) + bias) v`` with an additive -1e30
+bias on padded keys and an f32 scale, products in the input dtype with f32
+accumulation; under dropout each probability is kept by a murmur3 hash of
+its global (query, key) indices, the cell ``b * H + h`` and the seed, and
+scaled by ``1 / (1 - rate)``; the probabilities are rounded to the input
+dtype for the P.V product and the undropped row sum is divided out after
+it. The per-row f32 statistics (m, l) come back in ``[B, H, N, 2]``.
+Backward: P rebuilt from (m, l), D = rowsum(dO * O) in f32, the same keep
+mask on dP, dS = P * (dP - D) rounded to the input dtype.
 
-On a CUDA tensor :func:`attention_fwd` launches ``csrc/attention.cu``; on a
-CPU tensor it runs :func:`attention_plain`.
+:func:`flash_attention_train` is the differentiable entry point (an
+``autograd.Function``). On CUDA tensors its forward launches
+``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu``; on CPU
+tensors both run the plain versions here.
 """
 
 from __future__ import annotations
@@ -20,9 +27,11 @@ import torch
 from transfusion_torch import kernels
 
 NEG = -1e30
-# Head dims the bf16 kernel is compiled for (csrc/attention.cu): the flagship's
-# 896 / 4 heads. The f32 kernel takes any D <= 256.
+# Head dims the bf16 kernels are compiled for (csrc/attention.cu,
+# csrc/attention_bwd.cu): the flagship's 896 / 4 heads. The f32 kernels take
+# any D <= 256.
 BF16_HEAD_DIMS = (224,)
+_MASK32 = 0xFFFFFFFF
 
 
 def key_bias(key_padding_mask, bsz: int, n: int, device):
@@ -33,52 +42,184 @@ def key_bias(key_padding_mask, bsz: int, n: int, device):
                        NEG, 0.0).to(torch.float32)
 
 
-def attention_plain(q, k, v, key_padding_mask=None):
-    """Plain PyTorch statement of the kernel: returns (out, stats)."""
-    b, n, h, d = q.shape
+def keep_threshold(rate: float) -> int:
+    """The uint32 hash threshold below which a probability is dropped, as the
+    TPU kernel computes it (``jnp.uint32`` of a double: truncation)."""
+    return int(min(max(rate, 0.0), 1.0) * 4294967295.0)
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32): in 16-bit halves of c, so
+    no intermediate leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def dropout_keep_mask(bsz: int, nh: int, n: int, seed: int, rate: float, device):
+    """[B, H, N, N] bool keep mask (query rows, key columns): the plain
+    statement of the hash both the TPU kernel and the CUDA kernels use."""
+    r = torch.arange(n, dtype=torch.int64, device=device)
+    cell = torch.arange(bsz * nh, dtype=torch.int64, device=device).reshape(bsz, nh, 1, 1)
+    base = (seed & _MASK32) + _mul32(cell, 0xC2B2AE35)
+    x = (_mul32(r, 0x9E3779B9)[:, None] + _mul32(r, 0x85EBCA6B)[None, :] + base) & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x >= keep_threshold(rate)
+
+
+def _scores(q, k, bias):
+    d = q.shape[-1]
     scale = 1.0 / (d ** 0.5)
-    bias = key_bias(key_padding_mask, b, n, q.device)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale + bias[:, None, None, :]
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale + bias[:, None, None, :]
+
+
+def attention_plain(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch statement of K2: returns (out, stats)."""
+    b, n, h, d = q.shape
+    s = _scores(q, k, key_bias(key_padding_mask, b, n, q.device))
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device)
+        p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = (o / l.permute(0, 2, 1, 3)).to(q.dtype)
     return out, torch.cat([m, l], -1)
 
 
-def _attention_cuda(q, k, v, key_padding_mask):
+def attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask=None,
+                        dropout_rate: float = 0.0, seed: int = 0):
+    """Plain PyTorch statement of K3 and K4: returns (dq, dk, dv)."""
     b, n, h, d = q.shape
-    for t in (q, k, v):
+    dt = q.dtype
+    scale = 1.0 / (d ** 0.5)
+    s = _scores(q, k, key_bias(key_padding_mask, b, n, q.device))
+    p = torch.exp(s - stats[..., 0:1]) / stats[..., 1:2]
+    dpt = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    d_row = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]   # [B, H, N, 1]
+    pt, dp = p, dpt
+    if dropout_rate > 0.0:
+        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pt = torch.where(keep, p, 0.0) * inv
+        dp = torch.where(keep, dpt, 0.0) * inv
+    ds = (p * (dp - d_row)).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", pt.to(dt).float(), dout.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check_inputs(name, tensors, d):
+    q = tensors[0]
+    for t in tensors:
         kernels.require(t.shape == q.shape and t.dtype == q.dtype and t.device == q.device,
-                        "attention: q, k, v must match")
-        kernels.require(t.is_contiguous(), "attention: q, k, v must be contiguous [B, N, H, D]")
-        kernels.require(t.data_ptr() % 16 == 0, "attention: inputs must be 16-byte aligned")
-    kernels.require(q.dtype in (torch.bfloat16, torch.float32), f"attention: dtype {q.dtype}")
-    kernels.require(d <= 256, "attention: head dim must be <= 256")
+                        f"{name}: q, k, v (and o, dout) must match")
+        kernels.require(t.is_contiguous(), f"{name}: inputs must be contiguous [B, N, H, D]")
+        kernels.require(t.data_ptr() % 16 == 0, f"{name}: inputs must be 16-byte aligned")
+    kernels.require(q.dtype in (torch.bfloat16, torch.float32), f"{name}: dtype {q.dtype}")
+    kernels.require(d <= 256, f"{name}: head dim must be <= 256")
     kernels.require(q.dtype != torch.bfloat16 or d in BF16_HEAD_DIMS,
-                    f"attention: bf16 head dim must be one of {BF16_HEAD_DIMS}")
+                    f"{name}: bf16 head dim must be one of {BF16_HEAD_DIMS}")
+
+
+def _dropout_args(rate: float, seed: int):
+    if rate <= 0.0:
+        return 0, 0, 1.0, 0
+    return seed & _MASK32, keep_threshold(rate), 1.0 / (1.0 - rate), 1
+
+
+def _attention_cuda(q, k, v, key_padding_mask, rate, seed):
+    b, n, h, d = q.shape
+    _check_inputs("attention", (q, k, v), d)
     bias = key_bias(key_padding_mask, b, n, q.device).contiguous()
     out = torch.empty_like(q)
     stats = torch.empty((b, h, n, 2), dtype=torch.float32, device=q.device)
     code = kernels.library().tf_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         stats.data_ptr(), b, n, h, d, float(1.0 / (d ** 0.5)),
-        int(q.dtype == torch.bfloat16), kernels.stream_handle(q.device),
+        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed),
+        kernels.stream_handle(q.device),
     )
     kernels.check(code, "tf_attention_fwd")
-    kernels.LAUNCHES["attention_fwd"] += 1
+    kernels.LAUNCHES["attention_fwd_dropout" if rate > 0.0 else "attention_fwd"] += 1
     return out, stats
 
 
-def attention_fwd(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0,
+def _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, rate, seed):
+    b, n, h, d = q.shape
+    _check_inputs("attention backward", (q, k, v, out, dout), d)
+    kernels.require(stats.shape == (b, h, n, 2) and stats.dtype == torch.float32
+                    and stats.is_contiguous(), "attention backward: stats must be [B, H, N, 2] f32")
+    bias = key_bias(key_padding_mask, b, n, q.device).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib, stream = kernels.library(), kernels.stream_handle(q.device)
+    common = (b, n, h, d, float(1.0 / (d ** 0.5)), int(q.dtype == torch.bfloat16),
+              *_dropout_args(rate, seed), stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+           bias.data_ptr(), stats.data_ptr())
+    kernels.check(lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), "tf_attention_bwd_dq")
+    kernels.LAUNCHES["attention_bwd_dq"] += 1
+    kernels.check(lib.tf_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common),
+                  "tf_attention_bwd_dkv")
+    kernels.LAUNCHES["attention_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+def _check_rate(rate: float):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"attention dropout rate must be in [0, 1), got {rate}")
+
+
+def attention_fwd(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, seed: int = 0,
                   return_stats: bool = False):
-    """q/k/v [B, N, H, D]; key_padding_mask [B, N] bool, True = ignore.
-    Returns [B, N, H, D] (and the [B, H, N, 2] f32 (m, l) statistics)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError("attention dropout is not ported yet (eval uses rate 0)")
+    """q/k/v [B, N, H, D]; key_padding_mask [B, N] bool, True = ignore; seed
+    an int32 (ignored at rate 0). Returns [B, N, H, D] (and the
+    [B, H, N, 2] f32 (m, l) statistics). Not differentiable: see
+    :func:`flash_attention_train`."""
+    _check_rate(dropout_rate)
     if q.device.type == "cpu":
-        out, stats = attention_plain(q, k, v, key_padding_mask)
+        out, stats = attention_plain(q, k, v, key_padding_mask, dropout_rate, seed)
     else:
-        out, stats = _attention_cuda(q, k, v, key_padding_mask)
+        out, stats = _attention_cuda(q, k, v, key_padding_mask, dropout_rate, seed)
     return (out, stats) if return_stats else out
+
+
+def attention_bwd(q, k, v, out, stats, dout, key_padding_mask=None, dropout_rate: float = 0.0,
+                  seed: int = 0):
+    """Gradients (dq, dk, dv) of :func:`attention_fwd`'s output, given its
+    output, statistics and the output's gradient ``dout``."""
+    _check_rate(dropout_rate)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed)
+    return _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, seed):
+        out, stats = attention_fwd(q, k, v, key_padding_mask, dropout_rate, seed, return_stats=True)
+        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.key_padding_mask, ctx.rate, ctx.seed = key_padding_mask, dropout_rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, stats = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, stats, dout.contiguous(), ctx.key_padding_mask,
+                                   ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_train(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0,
+                          seed: int = 0):
+    """Differentiable fused attention with probability dropout (the TPU
+    package's ``flash_attention_train``): q/k/v [B, N, H, D] contiguous,
+    key_padding_mask [B, N] bool (True = ignore), seed an int32 varying per
+    step and layer. Returns [B, N, H, D]."""
+    return _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_rate), int(seed))

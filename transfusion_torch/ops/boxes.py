@@ -48,6 +48,29 @@ class BoxCoder(NamedTuple):
 
     weights: tuple = (1.0, 1.0, 1.0, 1.0)
 
+    def encode(self, reference, proposals):
+        """Regression targets of ``reference`` (gt) boxes with respect to
+        ``proposals``; degenerate sides count as 1 (callers mask those rows)."""
+        wx, wy, ww, wh = self.weights
+        ex_w = proposals[..., 2] - proposals[..., 0]
+        ex_h = proposals[..., 3] - proposals[..., 1]
+        ex_cx = proposals[..., 0] + 0.5 * ex_w
+        ex_cy = proposals[..., 1] + 0.5 * ex_h
+        gt_w = reference[..., 2] - reference[..., 0]
+        gt_h = reference[..., 3] - reference[..., 1]
+        gt_cx = reference[..., 0] + 0.5 * gt_w
+        gt_cy = reference[..., 1] + 0.5 * gt_h
+        one = torch.ones_like(ex_w)
+        safe_w = torch.where(ex_w > 0, ex_w, one)
+        safe_h = torch.where(ex_h > 0, ex_h, one)
+        safe_gt_w = torch.where(gt_w > 0, gt_w, one)
+        safe_gt_h = torch.where(gt_h > 0, gt_h, one)
+        dx = wx * (gt_cx - ex_cx) / safe_w
+        dy = wy * (gt_cy - ex_cy) / safe_h
+        dw = ww * torch.log(safe_gt_w / safe_w)
+        dh = wh * torch.log(safe_gt_h / safe_h)
+        return torch.stack([dx, dy, dw, dh], dim=-1)
+
     def decode(self, deltas, proposals):
         """Apply deltas [..., 4] (or [..., C, 4]) to proposals [..., 4]."""
         wx, wy, ww, wh = self.weights

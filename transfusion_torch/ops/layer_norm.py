@@ -8,7 +8,12 @@ LN(x + r) rounds the sum to the input dtype before the statistics, as the TPU
 kernel does.
 
 On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``;
-on a CPU tensor it runs :func:`layer_norm_plain`.
+on a CPU tensor it runs :func:`layer_norm_plain`. The kernel has no
+backward, as the TPU kernel runs on eval passes only (layer_norm.py:175-192):
+it refuses a CUDA input that requires grad while grad mode is on, and
+:class:`FusedLayerNorm` in training mode takes the differentiable plain
+version, which is the LayerNorm the JAX package trains with (flax's, with
+the same variance formula).
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ def layer_norm_plain(x, weight, bias, eps: float = 1e-6, residual=None):
 
 def _layer_norm_cuda(x, weight, bias, eps, residual):
     d = x.shape[-1]
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, residual, weight, bias)):
+        raise RuntimeError("fused_layer_norm: the LayerNorm kernel has no backward; train with "
+                           "layer_norm_plain (FusedLayerNorm does in training mode)")
     kernels.require(x.dtype in (torch.float32, torch.bfloat16), f"layer_norm: dtype {x.dtype}")
     kernels.require(x.is_contiguous(), "layer_norm: x must be contiguous")
     kernels.require(d % 8 == 0 and d <= 1024, "layer_norm: the last dim must be a multiple of 8, <= 1024")
@@ -68,7 +77,8 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-6, residual=None):
 class FusedLayerNorm(nn.Module):
     """Same parameter names as ``nn.LayerNorm`` (``weight``/``bias``);
     ``forward(x, residual=h)`` fuses the post-norm residual add. Inputs are
-    cast to ``dtype`` first, as the JAX module does."""
+    cast to ``dtype`` first, as the JAX module does. In training mode it
+    runs the plain, differentiable version; in eval mode the kernel."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
         super().__init__()
@@ -81,4 +91,6 @@ class FusedLayerNorm(nn.Module):
         x = x.to(self.dtype).contiguous()
         if residual is not None:
             residual = residual.to(self.dtype).contiguous()
+        if self.training:
+            return layer_norm_plain(x, self.weight, self.bias, self.eps, residual)
         return fused_layer_norm(x, self.weight, self.bias, self.eps, residual)

@@ -11,7 +11,9 @@ divide by ``max(ry * rx, 1)``.
 Layouts follow the JAX package: levels are channels-last ``[B, H, W, C]``,
 the packed pyramid ``[B, H_tot, W_max, C]``, the output ``[B, R, P, P, C]``.
 On a CUDA pyramid :func:`multiscale_roi_align` launches
-``csrc/roi_align.cu``; on a CPU pyramid it runs :func:`roi_align_plain`.
+``csrc/roi_align.cu`` (K5) forward and ``csrc/roi_align_bwd.cu`` (K6,
+port of ``roi_align_pallas.py::_bwd_kernel``) backward; on a CPU pyramid it
+runs :func:`roi_align_plain` and :func:`roi_align_bwd_plain`.
 """
 
 from __future__ import annotations
@@ -79,15 +81,13 @@ def roi_sample_params(rois, shapes, offsets, image_hw, output_size: int, samplin
     }
 
 
-def roi_align_plain(packed, params, output_size: int = 7):
-    """Plain PyTorch statement of the kernel: loops over the sample grid up
-    to this batch's largest (ry, rx), gathering the four bilinear corners of
-    every bin's sample at once; sums in f32."""
+def _bilinear_corners(params, output_size: int, w_max: int):
+    """The forward's sample grid, one sample (iy, ix) at a time up to this
+    batch's largest (ry, rx): for each sample the four bilinear corners as
+    (packed cell index [B, R, P, P], weight [B, R, P, P] f32), the weight 0
+    for samples outside the level or beyond the RoI's own (ry, rx)."""
     p = output_size
-    bsz, h_tot, w_max, c = packed.shape
-    dev = packed.device
-    n = params["bh"].shape[1]
-    flat = packed.reshape(bsz, h_tot * w_max, c).float()
+    dev = params["y1"].device
     ry, rx = params["ry"], params["rx"]
     ryf = torch.clamp(ry.float(), min=1.0)[..., None, None]
     rxf = torch.clamp(rx.float(), min=1.0)[..., None, None]
@@ -95,14 +95,13 @@ def roi_align_plain(packed, params, output_size: int = 7):
     wl = params["wl"][..., None, None]
     off = params["off"].to(torch.int64)[..., None, None]
     pr = torch.arange(p, dtype=torch.float32, device=dev)
-    bidx = torch.arange(bsz, device=dev)[:, None]
-    acc = torch.zeros((bsz, n, p, p, c), dtype=torch.float32, device=dev)
     max_ry = max(int(ry.max()), 0) if ry.numel() else 0
     max_rx = max(int(rx.max()), 0) if rx.numel() else 0
-    # Sample offsets as tensors: a true division by ry, as the kernel and the
+    # Sample offsets as tensors: a true division by ry, as the kernels and the
     # JAX package divide (a Python float over a tensor would multiply by the
     # reciprocal instead).
     half = torch.arange(max(max_ry, max_rx), dtype=torch.float32, device=dev) + 0.5
+    shape = params["y1"].shape + (p, p)
     for iy in range(max_ry):
         y = params["y1"][..., None, None] + params["bh"][..., None, None] * (
             pr[:, None] + half[iy] / ryf)                                 # [B, R, P, 1]
@@ -119,33 +118,74 @@ def roi_align_plain(packed, params, output_size: int = 7):
             x0 = torch.floor(xc)
             x1i = torch.minimum(x0 + 1, wl - 1)
             lx = xc - x0
-            val = 0.0
+            corners = []
             for yy, wy in ((y0, 1 - ly), (y1i, ly)):
                 for xx, wx in ((x0, 1 - lx), (x1i, lx)):
-                    cell = ((yy.to(torch.int64) + off) * w_max + xx.to(torch.int64))
-                    cell = cell.expand(bsz, n, p, p).reshape(bsz, -1)
-                    g = flat[bidx, cell].reshape(bsz, n, p, p, c)
-                    val = val + (wy * wx * ok)[..., None] * g
-            acc += val
+                    cell = (yy.to(torch.int64) + off) * w_max + xx.to(torch.int64)
+                    corners.append((cell.expand(shape), (wy * wx * ok).expand(shape)))
+            yield corners
+
+
+def roi_align_plain(packed, params, output_size: int = 7):
+    """Plain PyTorch statement of K5: gathers the four bilinear corners of
+    every bin's sample at once, one sample of the grid at a time; sums in
+    f32."""
+    bsz, h_tot, w_max, c = packed.shape
+    n = params["bh"].shape[1]
+    p = output_size
+    flat = packed.reshape(bsz, h_tot * w_max, c).float()
+    bidx = torch.arange(bsz, device=packed.device)[:, None]
+    acc = torch.zeros((bsz, n, p, p, c), dtype=torch.float32, device=packed.device)
+    for corners in _bilinear_corners(params, p, w_max):
+        val = 0.0
+        for cell, w in corners:
+            g = flat[bidx, cell.reshape(bsz, -1)].reshape(bsz, n, p, p, c)
+            val = val + w[..., None] * g
+        acc += val
     out = acc * params["count_inv"][..., None, None, None]
     return out.to(packed.dtype)
+
+
+def roi_align_bwd_plain(grad_out, params, packed_shape, dtype, output_size: int = 7):
+    """Plain PyTorch statement of K6: the gradient with respect to the packed
+    pyramid, every sample's bilinear weights x grad_out x count_inv
+    scatter-added (f32) into the cells the forward read, then cast once to
+    the pyramid's dtype."""
+    bsz, h_tot, w_max, c = packed_shape
+    g = grad_out.float() * params["count_inv"][..., None, None, None]
+    acc = torch.zeros((bsz * h_tot * w_max, c), dtype=torch.float32, device=grad_out.device)
+    base = (torch.arange(bsz, device=grad_out.device) * (h_tot * w_max))[:, None, None, None]
+    for corners in _bilinear_corners(params, output_size, w_max):
+        for cell, w in corners:
+            acc.index_add_(0, (cell + base).reshape(-1), (w[..., None] * g).reshape(-1, c))
+    return acc.reshape(packed_shape).to(dtype)
+
+
+def _device_params(params, device):
+    """Per-RoI floats [B, R, 8] and ints [B, R, 4], as the kernels read them."""
+    fparams = torch.stack(
+        [params["y1"], params["x1"], params["bh"], params["bw"], params["hl"], params["wl"],
+         params["count_inv"], torch.zeros_like(params["y1"])], dim=-1,
+    ).to(device=device, dtype=torch.float32).contiguous()
+    iparams = torch.stack(
+        [params["ry"], params["rx"], params["off"], torch.zeros_like(params["ry"])], dim=-1,
+    ).to(device=device, dtype=torch.int32).contiguous()
+    return fparams, iparams
+
+
+def _check_pyramid(name, t):
+    kernels.require(t.dtype in (torch.bfloat16, torch.float32), f"{name}: dtype {t.dtype}")
+    kernels.require(t.is_contiguous(), f"{name}: tensors must be contiguous")
+    kernels.require(t.shape[-1] * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0,
+                    f"{name}: a pixel's channels must fill whole 16-byte vectors, 16-byte aligned")
 
 
 def _roi_align_cuda(packed, params, output_size: int):
     bsz, h_tot, w_max, c = packed.shape
     n = params["bh"].shape[1]
-    kernels.require(packed.dtype in (torch.bfloat16, torch.float32), f"roi_align: dtype {packed.dtype}")
-    kernels.require(packed.is_contiguous(), "roi_align: packed pyramid must be contiguous")
-    kernels.require(c * packed.element_size() % 16 == 0 and packed.data_ptr() % 16 == 0,
-                    "roi_align: a pixel's channels must fill whole 16-byte vectors, 16-byte aligned")
+    _check_pyramid("roi_align", packed)
     kernels.require(output_size <= 32, "roi_align: output size must be <= 32")
-    fparams = torch.stack(
-        [params["y1"], params["x1"], params["bh"], params["bw"], params["hl"], params["wl"],
-         params["count_inv"], torch.zeros_like(params["y1"])], dim=-1,
-    ).to(device=packed.device, dtype=torch.float32).contiguous()
-    iparams = torch.stack(
-        [params["ry"], params["rx"], params["off"], torch.zeros_like(params["ry"])], dim=-1,
-    ).to(device=packed.device, dtype=torch.int32).contiguous()
+    fparams, iparams = _device_params(params, packed.device)
     out = torch.empty((bsz, n, output_size, output_size, c), dtype=packed.dtype, device=packed.device)
     if n == 0:
         return out
@@ -159,17 +199,62 @@ def _roi_align_cuda(packed, params, output_size: int):
     return out
 
 
+def _roi_align_bwd_cuda(grad_out, params, packed_shape, dtype, output_size: int):
+    bsz, h_tot, w_max, c = packed_shape
+    n = params["bh"].shape[1]
+    _check_pyramid("roi_align backward", grad_out)
+    kernels.require(grad_out.dtype == dtype and grad_out.shape == (bsz, n, output_size, output_size, c),
+                    "roi_align backward: grad_out must be [B, R, P, P, C] in the pyramid's dtype")
+    acc = torch.zeros(packed_shape, dtype=torch.float32, device=grad_out.device)
+    if n == 0:
+        return acc.to(dtype)
+    fparams, iparams = _device_params(params, grad_out.device)
+    code = kernels.library().tf_roi_align_bwd(
+        grad_out.data_ptr(), fparams.data_ptr(), iparams.data_ptr(), acc.data_ptr(),
+        bsz, n, h_tot, w_max, c, output_size, int(dtype == torch.bfloat16),
+        kernels.stream_handle(grad_out.device),
+    )
+    kernels.check(code, "tf_roi_align_bwd")
+    kernels.LAUNCHES["roi_align_bwd"] += 1
+    return acc.to(dtype)
+
+
+def roi_align_bwd(grad_out, params, packed_shape, dtype, output_size: int = 7):
+    """Gradient with respect to the packed pyramid: K6 on CUDA, else plain."""
+    if grad_out.device.type == "cpu":
+        return roi_align_bwd_plain(grad_out, params, packed_shape, dtype, output_size)
+    return _roi_align_bwd_cuda(grad_out, params, packed_shape, dtype, output_size)
+
+
+class _RoIAlign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, packed, params, output_size):
+        ctx.params, ctx.output_size = params, output_size
+        ctx.packed_shape, ctx.dtype = tuple(packed.shape), packed.dtype
+        if packed.device.type == "cpu":
+            return roi_align_plain(packed, params, output_size)
+        return _roi_align_cuda(packed, params, output_size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grad = roi_align_bwd(grad_out.contiguous(), ctx.params, ctx.packed_shape, ctx.dtype,
+                             ctx.output_size)
+        return grad, None, None
+
+
 def pooled_from_packed(packed, params, output_size: int = 7):
-    """Pool every RoI from a packed pyramid: the kernel on CUDA, else plain."""
-    if packed.device.type == "cpu":
-        return roi_align_plain(packed, params, output_size)
-    return _roi_align_cuda(packed, params, output_size)
+    """Pool every RoI from a packed pyramid, differentiably with respect to
+    the pyramid: K5 forward and K6 backward on CUDA, else the plain
+    versions."""
+    return _RoIAlign.apply(packed, params, output_size)
 
 
 def multiscale_roi_align(feats: dict, rois, image_hw, output_size: int = 7,
                          sampling_ratio: int = 0):
     """feats {"0".."3": [B, H_l, W_l, C]}, rois [B, R, 4] in image
-    coordinates -> [B, R, P, P, C] in the pyramid's dtype."""
+    coordinates -> [B, R, P, P, C] in the pyramid's dtype. The gradient
+    flows back through the packing to every level."""
     packed, shapes, offsets = pack_pyramid(feats)
-    params = roi_sample_params(rois.float(), shapes, offsets, image_hw, output_size, sampling_ratio)
+    params = roi_sample_params(rois.detach().float(), shapes, offsets, image_hw, output_size,
+                               sampling_ratio)
     return pooled_from_packed(packed, params, output_size)

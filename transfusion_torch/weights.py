@@ -9,6 +9,8 @@ undoes the translator's four layout changes: HWIO -> OIHW convs, the fc6
 column order (y, x, c) -> (c, y, x), the back-projection fold order
 (ph, pw, C) -> (C, ph, pw) (rows and bias), and the split q/k/v projections
 -> the packed ``in_proj_weight``/``in_proj_bias``.
+:func:`radam_state_from_jax` carries an optax RAdam state (its moments
+through the same mapping) into the port's optimizer state.
 """
 
 from __future__ import annotations
@@ -151,6 +153,38 @@ def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
     if unknown:
         raise NotImplementedError(f"params not ported yet: {sorted(unknown)}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _find_adam_state(node):
+    """The ScaleByAdamState (count, mu, nu) inside an optax state tree."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def radam_state_from_jax(opt_state, param_names, fpn_features=None) -> dict:
+    """An optax RAdam chain's state (numpy or jax leaves) -> the port's
+    optimizer state {"count", "mu", "nu"} (:mod:`transfusion_torch.train.optim`)
+    over ``param_names``. The moments go through the same layout changes as
+    the parameters; moments of the JAX parameters that are buffers in the
+    port (the frozen BatchNorm vectors) are dropped."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no scale_by_radam state (count, mu, nu) in the optimizer state")
+    names = list(param_names)
+    out = {"count": int(np.asarray(adam.count))}
+    for key in ("mu", "nu"):
+        moments = state_dict_from_jax(getattr(adam, key), fpn_features)
+        missing = [n for n in names if n not in moments]
+        if missing:
+            raise KeyError(f"optimizer state lacks parameters: {missing[:5]}")
+        out[key] = {n: moments[n] for n in names}
+    return out
 
 
 @torch.no_grad()
