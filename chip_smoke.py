@@ -10,10 +10,12 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    sm_90a and print the build time;
 2. for each kernel entry -- eval: LayerNorm, residual LayerNorm, attention
    forward, RoIAlign forward; training: attention forward with dropout,
-   attention backward dQ and dK/dV, RoIAlign backward -- at the flagship
-   paths' shapes in bf16 plus one f32 case: the kernel against its plain
-   PyTorch version (max |diff| against a stated tolerance; the dropout mask
-   bit for bit), kernel / plain / library-call times from CUDA events, and
+   attention backward dQ and dK/dV (at rates 0.15 and 0, and two launches
+   bit for bit), RoIAlign backward; off both paths: exact self-attention
+   (K7) in both layouts -- at the flagship paths' shapes in bf16 plus one
+   f32 case: the kernel against its plain PyTorch version (max |diff|
+   against a stated tolerance; the dropout mask bit for bit), kernel /
+   plain / library-call times from CUDA events, and
    the least time the card could take (bound_ms, from the H100 SXM
    data-sheet rates 3.35 TB/s, 989 TFLOP/s bf16 tensor, 67 TFLOP/s f32);
 3. small-input reference checks: the tiny f32 model's trunk on the card
@@ -72,6 +74,7 @@ REPLACES = {
     "attention_fwd_dropout": "transfusion_tpu/ops/attention.py:226",
     "attention_bwd_dq": "transfusion_tpu/ops/attention.py:253",
     "attention_bwd_dkv": "transfusion_tpu/ops/attention.py:297",
+    "self_attention": "transfusion_tpu/ops/attention.py:29",
     "roi_align_fwd": "transfusion_tpu/ops/roi_align_pallas.py:267",
     "roi_align_bwd": "transfusion_tpu/ops/roi_align_pallas.py:370",
 }
@@ -82,6 +85,7 @@ SOURCES = {
     "attention_fwd_dropout": "transfusion_torch/csrc/attention.cu",
     "attention_bwd_dq": "transfusion_torch/csrc/attention_bwd.cu",
     "attention_bwd_dkv": "transfusion_torch/csrc/attention_bwd.cu",
+    "self_attention": "transfusion_torch/csrc/attention.cu",
     "roi_align_fwd": "transfusion_torch/csrc/roi_align.cu",
     "roi_align_bwd": "transfusion_torch/csrc/roi_align_bwd.cu",
 }
@@ -217,11 +221,12 @@ def _attention_inputs(torch, seed: int):
     return q, k, v, mask, g
 
 
-def _attention_bound(flops: float, tensors: int):
+def _attention_bound(flops: float, tensors: int, d_rows: int = 0):
     """bound_ms of an attention kernel that reads/writes ``tensors`` tensors
-    of [B, N, H, D] bf16 plus the f32 statistics and key bias."""
-    return bound_ms(tensors * B * N0 * HEADS * HEAD_DIM * 2 + B * HEADS * N0 * 8 + B * N0 * 4, flops,
-                    BF16_TC_FLOPS)
+    of [B, N, H, D] bf16 plus the f32 statistics and key bias (and, if
+    ``d_rows``, the [B, H, N] f32 D rows)."""
+    return bound_ms(tensors * B * N0 * HEADS * HEAD_DIM * 2 + B * HEADS * N0 * (8 + 4 * d_rows)
+                    + B * N0 * 4, flops, BF16_TC_FLOPS)
 
 
 def phase_attention_dropout(torch):
@@ -271,46 +276,59 @@ def phase_attention_dropout(torch):
 
 
 def phase_attention_bwd(torch):
-    """K3 (dQ) and K4 (dK, dV) at rate 0.15 against the plain backward from
-    the same forward output and statistics. The backward rounds dS to bf16
-    from probabilities the two sides compute with different exp routines,
-    so a dS may land one ulp apart: outputs are held at four bf16 ulps of
-    max|plain| and a mean difference under 2^-7 of mean|plain|."""
+    """K3 (dQ) and K4 (dK, dV) at rate 0.15 and at rate 0 against the plain
+    backward from the same forward output and statistics. The backward
+    rounds dS to bf16 from probabilities the two sides compute with
+    different exp routines, so a dS may land one ulp apart: outputs are held
+    at four bf16 ulps of max|plain| and a mean difference under 2^-7 of
+    mean|plain|. No atomics: two launches give the same bits."""
     from transfusion_torch import kernels
     from transfusion_torch.ops import attention as at
 
     q, k, v, mask, g = _attention_inputs(torch, 5)
     dout = torch.randn(B, N0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
     seed = 424242
-    log(f"[attention_bwd] q/k/v/o/dO [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {DROPOUT}")
-    out, stats = at.attention_fwd(q, k, v, mask, DROPOUT, seed, return_stats=True)
-    got = at.attention_bwd(q, k, v, out, stats, dout, mask, DROPOUT, seed)
-    want = at.attention_bwd_plain(q, k, v, out, stats, dout, mask, DROPOUT, seed)
-    torch.cuda.synchronize()
     errs = {}
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        errs[name] = max_err(a, b)
-        check(f"attention backward bf16 {name}", errs[name], 4 * bf16_ulp(float(b.float().abs().max())))
-        mean_rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
-        check(f"attention backward bf16 {name}", mean_rel, 2.0 ** -7, "mean|kernel - plain| / mean|plain|")
-    del got, want
-    torch.cuda.empty_cache()
+    for rate in (0.0, DROPOUT):
+        log(f"[attention_bwd] q/k/v/o/dO [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {rate}")
+        out, stats = at.attention_fwd(q, k, v, mask, rate, seed, return_stats=True)
+        got = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed)
+        again = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed)
+        want = at.attention_bwd_plain(q, k, v, out, stats, dout, mask, rate, seed)
+        torch.cuda.synchronize()
+        for name, a, b, a2 in zip(("dq", "dk", "dv"), got, want, again):
+            err = max_err(a, b)
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(f"attention backward bf16 {name} rate {rate}", err,
+                  4 * bf16_ulp(float(b.float().abs().max())))
+            mean_rel = float((a.float() - b.float()).abs().mean() / b.float().abs().mean())
+            check(f"attention backward bf16 {name} rate {rate}", mean_rel, 2.0 ** -7,
+                  "mean|kernel - plain| / mean|plain|")
+            check(f"attention backward bf16 {name} rate {rate}, two launches", float((a != a2).sum()),
+                  0.0, "differing elements")
+        del got, again, want
+        torch.cuda.empty_cache()
     qf, kf, vf, df = (torch.randn(1, 700, HEADS, 96, device="cuda", generator=g) for _ in range(4))
     of, sf = at.attention_fwd(qf, kf, vf, None, DROPOUT, 3, return_stats=True)
     for name, a, b in zip(("dq", "dk", "dv"), at.attention_bwd(qf, kf, vf, of, sf, df, None, DROPOUT, 3),
                           at.attention_bwd_plain(qf, kf, vf, of, sf, df, None, DROPOUT, 3)):
         check(f"attention backward f32 {name}", max_err(a, b) / float(b.abs().max()), 1e-4,
               "max|kernel - plain| / max|plain|")
-    # Each kernel timed alone through its C entry (the wrapper launches both).
+    # Each kernel timed alone through its C entry (the wrapper launches both);
+    # K4 reads the D rows K3's warm-up wrote. Rate 0.15 is the train path's.
     lib, stream = kernels.library(), kernels.stream_handle(q.device)
     bias = at.key_bias(mask, B, N0, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    common = (B, N0, HEADS, HEAD_DIM, 1.0 / HEAD_DIM ** 0.5, 1, *at._dropout_args(DROPOUT, seed), stream)
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-           bias.data_ptr(), stats.data_ptr())
-    ms_dq = cuda_ms(lambda: lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), 5, warmup=1)
-    ms_dkv = cuda_ms(lambda: lib.tf_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common), 5,
-                     warmup=1)
+    d_rows = torch.empty(B, HEADS, N0, device="cuda")
+    times = {}
+    for rate in (0.0, DROPOUT):
+        common = (B, N0, HEADS, HEAD_DIM, 1.0 / HEAD_DIM ** 0.5, 1, *at._dropout_args(rate, seed), stream)
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+               bias.data_ptr(), stats.data_ptr(), d_rows.data_ptr())
+        times[rate] = (cuda_ms(lambda: lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), 5, warmup=1),
+                       cuda_ms(lambda: lib.tf_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common),
+                               5, warmup=1))
+    ms_dq, ms_dkv = times[DROPOUT]
     plain = cuda_ms(lambda: at.attention_bwd_plain(q, k, v, out, stats, dout, mask, DROPOUT, seed), 1,
                     warmup=1)
     torch.cuda.empty_cache()
@@ -322,16 +340,67 @@ def phase_attention_bwd(torch):
     lib_ms = cuda_ms(lambda: torch.autograd.grad(ref, (qt, kt, vt), dout.transpose(1, 2),
                                                  retain_graph=True), 5, warmup=1)
     n2d = B * HEADS * N0 * N0 * HEAD_DIM
-    b_dq, by_dq = _attention_bound(6 * n2d, 6)
-    b_dkv, by_dkv = _attention_bound(8 * n2d, 7)
-    log(f"  dQ {6 * n2d / (ms_dq * 1e-3) / 1e12:.1f} TFLOP/s, dK/dV {8 * n2d / (ms_dkv * 1e-3) / 1e12:.1f} "
-        f"TFLOP/s achieved; plain backward (dQ, dK, dV together) {plain:.2f} ms")
+    b_dq, by_dq = _attention_bound(6 * n2d, 6, d_rows=1)  # q k v o dO read, dQ and D written
+    b_dkv, by_dkv = _attention_bound(8 * n2d, 6, d_rows=1)  # q k v dO and D read, dK dV written
+    for rate, (a, b) in times.items():
+        log(f"  rate {rate}: dQ {a:.4f} ms, {6 * n2d / (a * 1e-3) / 1e12:.1f} TFLOP/s; dK/dV {b:.4f} ms, "
+            f"{8 * n2d / (b * 1e-3) / 1e12:.1f} TFLOP/s; together {a + b:.4f} ms, "
+            f"{14 * n2d / ((a + b) * 1e-3) / 1e12:.1f} TFLOP/s (SDPA backward {lib_ms:.4f} ms)")
+    log(f"  plain backward (dQ, dK, dV together) {plain:.2f} ms")
     del ref, qt, kt, vt
     torch.cuda.empty_cache()
     return [{"name": "attention_bwd_dq", "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain,
              "library_ms": lib_ms, "bound_ms": b_dq, "bound_by": by_dq},
             {"name": "attention_bwd_dkv", "max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms_dkv,
              "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_dkv, "bound_by": by_dkv}]
+
+
+def phase_self_attention(torch):
+    """K7 (exact self-attention, no statistics) against its plain version in
+    both layouts, [B, N, H, D] and [B, H, N, D], read through strides. Its
+    bf16 output is held as K2's is (two bf16 ulps of max|plain| and a mean
+    difference under 2^-7 of mean|plain|); f32 at 1e-5. No model calls K7:
+    it launches 0 times on either path."""
+    from transfusion_torch.ops import attention as at
+
+    q, k, v, mask, g = _attention_inputs(torch, 7)
+    log(f"[self_attention] q/k/v [{B}, {N0}, {HEADS}, {HEAD_DIM}] and [{B}, {HEADS}, {N0}, {HEAD_DIM}] bf16")
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    err = 0.0
+    for layout, fn, args, plain_fn in (
+            ("blhd", at.flash_self_attention_blhd, (q, k, v), lambda: at.attention_plain(q, k, v, mask)[0]),
+            ("bhnd", at.flash_self_attention, (qh, kh, vh), lambda: at.self_attention_plain(qh, kh, vh, mask))):
+        got = fn(*args, mask)
+        want = plain_fn()
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        err = max(err, e)
+        check(f"self attention bf16 {layout}", e, 2 * bf16_ulp(float(want.float().abs().max())))
+        mean_rel = float((got.float() - want.float()).abs().mean() / want.float().abs().mean())
+        check(f"self attention bf16 {layout}", mean_rel, 2.0 ** -7, "mean|kernel - plain| / mean|plain|")
+        del got, want
+    qf, kf, vf = (torch.randn(1, 1100, HEADS, HEAD_DIM, device="cuda", generator=g) for _ in range(3))
+    mf = torch.zeros(1, 1100, dtype=torch.bool, device="cuda")
+    mf[0, -7:] = True
+    check("self attention f32 blhd", max_err(at.flash_self_attention_blhd(qf, kf, vf, mf),
+                                             at.attention_plain(qf, kf, vf, mf)[0]), 1e-5)
+    qf, kf, vf = (t.transpose(1, 2).contiguous() for t in (qf, kf, vf))
+    check("self attention f32 bhnd", max_err(at.flash_self_attention(qf, kf, vf, mf),
+                                             at.self_attention_plain(qf, kf, vf, mf)), 1e-5)
+    ms = cuda_ms(lambda: at.flash_self_attention_blhd(q, k, v, mask), 5, warmup=1)
+    ms_bhnd = cuda_ms(lambda: at.flash_self_attention(qh, kh, vh, mask), 5, warmup=1)
+    plain = cuda_ms(lambda: at.attention_plain(q, k, v, mask), 2, warmup=1)
+    bias = at.key_bias(mask, B, N0, q.device).to(q.dtype)[:, None, None, :]
+    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias),
+                  5, warmup=1)
+    flops = 4 * B * HEADS * N0 * N0 * HEAD_DIM
+    bms, by = bound_ms(4 * B * N0 * HEADS * HEAD_DIM * 2 + B * N0 * 4, flops, BF16_TC_FLOPS)
+    log(f"  [B, N, H, D] {ms:.4f} ms, {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s; [B, H, N, D] "
+        f"{ms_bhnd:.4f} ms; SDPA [B, H, N, D] {lib:.4f} ms")
+    del qh, kh, vh
+    torch.cuda.empty_cache()
+    return {"name": "self_attention", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bms, "bound_by": by}
 
 
 def _synthetic_rois(torch, g, bsz, n, hw):
@@ -816,7 +885,7 @@ def main() -> int:
 
     results = [phase_layer_norm(torch, False), phase_layer_norm(torch, True),
                phase_attention(torch), phase_attention_dropout(torch), *phase_attention_bwd(torch),
-               phase_roi_align(torch), phase_roi_align_bwd(torch)]
+               phase_self_attention(torch), phase_roi_align(torch), phase_roi_align_bwd(torch)]
     phase_small_reference(torch)
     phase_small_train_reference(torch)
     slice_rec, slice_state = phase_slice(torch, np)

@@ -1,4 +1,5 @@
-// K2: self-attention forward with a key-padding bias, [B, N, H, D] layout.
+// K2: self-attention forward with a key-padding bias, [B, N, H, D] layout;
+// K7: the same without dropout or statistics, in either layout.
 //
 // Replaces the Pallas kernel transfusion_tpu/ops/attention.py:226
 // (_fwd_kernel, launched by _flash_fwd at :372 for flash_attention_train).
@@ -35,6 +36,22 @@
 //
 // Design (f32, for tight checks): 32-query by 32-key tiles in shared memory
 // with plain FMA, no tensor cores.
+//
+// K7 (tf_self_attention) replaces the Pallas kernel
+// transfusion_tpu/ops/attention.py:29 (_attn_kernel, launched by
+// flash_self_attention at :102 for [B, H, N, D] and flash_self_attention_blhd
+// at :152 for [B, N, H, D]): the same function without dropout or
+// statistics. It is a compile-time variant of K2 (kStats false) whose rows
+// are addressed through element strides of batch, position and head, so
+// either layout runs without a transpose copy. The TPU kernel takes the
+// exact row max over all keys before one exp; K2's online softmax rescales
+// by exp(m_old - m_new) as the max grows, which is the same function. In
+// bf16, q and k products are exact in f32 (8 x 8 significant bits) whether
+// the operands are upcast first, as the TPU kernel does, or multiplied on
+// the tensor cores, so only the order of the f32 sums differs; P is rounded
+// to bf16 against the running instead of the final max, so outputs may land
+// one bf16 ulp apart, and the card checks allow two ulps of max|plain| plus
+// a mean bound, as for K2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +66,12 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kHeadDimCap = 256;
 
+// Element strides of batch, sequence position and head: (N H D, H D, D) for
+// [B, N, H, D], (H N D, D, N D) for [B, H, N, D]. The head dim is contiguous.
+struct Strides {
+  long long b, n, h;
+};
+
 // exp(a - b) that is 0 when a is -inf (a key past N or an empty running max).
 __device__ __forceinline__ float exp_diff(float a, float b) {
   return a == -INFINITY ? 0.f : expf(a - b);
@@ -62,12 +85,13 @@ size_t smem_bf16(int d) { return sizeof(__nv_bfloat16) * (size_t)(kBQ + 2 * kBK)
 // The head dim kD is a compile-time constant: every loop over it unrolls
 // without guards, so the compiler can overlap one step's ldmatrix with the
 // previous step's mma.
-template <int kD, bool kDropout>
+template <int kD, bool kDropout, bool kStats>
 __global__ void __launch_bounds__(kThreads, 2)
 attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
               __nv_bfloat16* __restrict__ out, float* __restrict__ stats,
-              int n, int nh, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+              int n, int nh, Strides st, float scale, uint32_t seed, uint32_t thresh,
+              float inv_keep) {
   static_assert(kD % 16 == 0 && kD <= kHeadDimCap, "head dim");
   constexpr int kNT = kD / 8;   // 8-wide column tiles of the output accumulator
   constexpr int kST = kBK / 8;  // 8-key column tiles of a score tile
@@ -82,8 +106,8 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group and column pair
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
-  const size_t row_stride = (size_t)nh * kD;
-  const size_t head_off = (size_t)b * n * row_stride + (size_t)h * kD;
+  const size_t row_stride = st.n;
+  const size_t head_off = (size_t)b * st.b + (size_t)h * st.h;
   const float* key_bias = bias + (size_t)b * n;
   const int r0 = warp * 16;
   // Dropout hash inputs of rows g and g + 8 (unused at rate 0).
@@ -226,25 +250,25 @@ attn_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       *reinterpret_cast<__nv_bfloat162*>(out + head_off + (size_t)qb * row_stride + c) =
           __floats2bfloat162_rn(o[j][2] * inv_b, o[j][3] * inv_b);
   }
-  if (t == 0) {
-    float* st = stats + ((size_t)b * nh + h) * n * 2;
+  if (kStats && t == 0) {
+    float* sr = stats + ((size_t)b * nh + h) * n * 2;
     if (qa < n) {
-      st[(size_t)qa * 2] = row_m[0];
-      st[(size_t)qa * 2 + 1] = row_l[0];
+      sr[(size_t)qa * 2] = row_m[0];
+      sr[(size_t)qa * 2 + 1] = row_l[0];
     }
     if (qb < n) {
-      st[(size_t)qb * 2] = row_m[1];
-      st[(size_t)qb * 2 + 1] = row_l[1];
+      sr[(size_t)qb * 2] = row_m[1];
+      sr[(size_t)qb * 2 + 1] = row_l[1];
     }
   }
 }
 
-template <int kD, bool kDropout>
+template <int kD, bool kDropout, bool kStats>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* out,
-                        void* stats, int bsz, int n, int nh, float scale, uint32_t seed,
-                        uint32_t thresh, float inv_keep, cudaStream_t s) {
+                        void* stats, int bsz, int n, int nh, Strides st, float scale,
+                        uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t s) {
   const size_t smem = smem_bf16(kD);
-  auto* kernel = attn_fwd_bf16<kD, kDropout>;
+  auto* kernel = attn_fwd_bf16<kD, kDropout, kStats>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err == cudaSuccess)  // all of the SM's shared memory, so two blocks fit
@@ -254,7 +278,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   const dim3 grid((n + kBQ - 1) / kBQ, nh, bsz);
   kernel<<<grid, kThreads, smem, s>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const float*)bias, (__nv_bfloat16*)out, (float*)stats, n, nh, scale, seed, thresh,
+      (const float*)bias, (__nv_bfloat16*)out, (float*)stats, n, nh, st, scale, seed, thresh,
       inv_keep);
   return cudaSuccess;
 }
@@ -262,12 +286,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 // ----------------------------------------------------------------- f32 path
 constexpr int kFQ = 32, kFK = 32;
 
-template <bool kDropout>
+template <bool kDropout, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ bias,
              float* __restrict__ out, float* __restrict__ stats,
-             int n, int nh, int d, float scale, uint32_t seed, uint32_t thresh, float inv_keep) {
+             int n, int nh, int d, Strides st, float scale, uint32_t seed, uint32_t thresh,
+             float inv_keep) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = d + 1;
   float* Qs = reinterpret_cast<float*>(smem);
@@ -282,8 +307,8 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kFQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row_stride = (size_t)nh * d;
-  const size_t head_off = (size_t)b * n * row_stride + (size_t)h * d;
+  const size_t row_stride = st.n;
+  const size_t head_off = (size_t)b * st.b + (size_t)h * st.h;
 
   for (int idx = threadIdx.x; idx < kFQ * d; idx += kThreads) {
     const int r = idx / d, c = idx - r * d;
@@ -338,10 +363,10 @@ attn_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int r = idx / d, c = idx - r * d;
     if (q0 + r < n) out[head_off + (size_t)(q0 + r) * row_stride + c] = Os[r * ld + c] / row_l[r];
   }
-  if (threadIdx.x < kFQ && q0 + threadIdx.x < n) {
-    float* st = stats + (((size_t)b * nh + h) * n + q0 + threadIdx.x) * 2;
-    st[0] = row_m[threadIdx.x];
-    st[1] = row_l[threadIdx.x];
+  if (kStats && threadIdx.x < kFQ && q0 + threadIdx.x < n) {
+    float* sr = stats + (((size_t)b * nh + h) * n + q0 + threadIdx.x) * 2;
+    sr[0] = row_m[threadIdx.x];
+    sr[1] = row_l[threadIdx.x];
   }
 }
 
@@ -350,18 +375,18 @@ size_t smem_f32(int d) {
   return sizeof(float) * ((size_t)(2 * kFQ + 2 * kFK) * ld + kFQ * (kFK + 1) + 3 * kFQ);
 }
 
-template <bool kDropout>
+template <bool kDropout, bool kStats>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias, void* out,
-                       void* stats, int bsz, int n, int nh, int d, float scale, uint32_t seed,
-                       uint32_t thresh, float inv_keep, cudaStream_t s) {
+                       void* stats, int bsz, int n, int nh, int d, Strides st, float scale,
+                       uint32_t seed, uint32_t thresh, float inv_keep, cudaStream_t s) {
   const size_t smem = smem_f32(d);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<kDropout>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_f32<kDropout, kStats>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kFQ - 1) / kFQ, nh, bsz);
-  attn_fwd_f32<kDropout><<<grid, kThreads, smem, s>>>(
+  attn_fwd_f32<kDropout, kStats><<<grid, kThreads, smem, s>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias, (float*)out,
-      (float*)stats, n, nh, d, scale, seed, thresh, inv_keep);
+      (float*)stats, n, nh, d, st, scale, seed, thresh, inv_keep);
   return cudaSuccess;
 }
 
@@ -376,19 +401,44 @@ extern "C" int tf_attention_fwd(const void* q, const void* k, const void* v, con
                                 float inv_keep, int dropout, void* stream) {
   if (bsz <= 0 || n <= 0 || nh <= 0 || d <= 0 || d > kHeadDimCap) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Strides st{(long long)n * nh * d, (long long)nh * d, d};  // [B, N, H, D]
   cudaError_t err;
   if (is_bf16) {
     // The flagship's head dim (896 / 4 heads), BF16_HEAD_DIMS in ops/attention.py.
     if (d != 224) return (int)cudaErrorInvalidValue;
-    err = dropout ? launch_bf16<224, true>(q, k, v, bias, out, stats, bsz, n, nh, scale, seed,
-                                           thresh, inv_keep, s)
-                  : launch_bf16<224, false>(q, k, v, bias, out, stats, bsz, n, nh, scale, 0u, 0u,
-                                            1.f, s);
+    err = dropout ? launch_bf16<224, true, true>(q, k, v, bias, out, stats, bsz, n, nh, st, scale,
+                                                 seed, thresh, inv_keep, s)
+                  : launch_bf16<224, false, true>(q, k, v, bias, out, stats, bsz, n, nh, st,
+                                                  scale, 0u, 0u, 1.f, s);
   } else {
-    err = dropout ? launch_f32<true>(q, k, v, bias, out, stats, bsz, n, nh, d, scale, seed, thresh,
-                                     inv_keep, s)
-                  : launch_f32<false>(q, k, v, bias, out, stats, bsz, n, nh, d, scale, 0u, 0u, 1.f,
-                                      s);
+    err = dropout ? launch_f32<true, true>(q, k, v, bias, out, stats, bsz, n, nh, d, st, scale,
+                                           seed, thresh, inv_keep, s)
+                  : launch_f32<false, true>(q, k, v, bias, out, stats, bsz, n, nh, d, st, scale,
+                                            0u, 0u, 1.f, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// K7: exact self-attention without statistics or dropout, q/k/v/out addressed
+// through the element strides (sb, sn, sh) of batch, position and head, so
+// [B, H, N, D] and [B, N, H, D] both run without a transpose copy. Every row
+// must start on a 16-byte boundary (bf16: D = 224 only; f32: any D <= 256).
+extern "C" int tf_self_attention(const void* q, const void* k, const void* v, const void* bias,
+                                 void* out, int bsz, int n, int nh, int d, long long sb,
+                                 long long sn, long long sh, float scale, int is_bf16,
+                                 void* stream) {
+  if (bsz <= 0 || n <= 0 || nh <= 0 || d <= 0 || d > kHeadDimCap) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Strides st{sb, sn, sh};
+  cudaError_t err;
+  if (is_bf16) {
+    if (d != 224) return (int)cudaErrorInvalidValue;
+    err = launch_bf16<224, false, false>(q, k, v, bias, out, nullptr, bsz, n, nh, st, scale, 0u, 0u,
+                                         1.f, s);
+  } else {
+    err = launch_f32<false, false>(q, k, v, bias, out, nullptr, bsz, n, nh, d, st, scale, 0u, 0u,
+                                   1.f, s);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -7,33 +7,68 @@
 // the forward's stored f32 statistics, P = exp(s - m) / l for
 // s = q k^T * scale + bias_key, and D = rowsum(dO * O) in f32:
 //   dP = dropout(dO v^T) (the forward's keep mask, scaled by 1 / (1 - rate)),
-//   dS = P * (dP - D), rounded to the input dtype before its products,
+//   dS = P * (dP - D), from the f32 P, rounded to the input dtype before its
+//   products,
 //   dQ = dS k * scale,   dK = dS^T q * scale,   dV = dropout(P)^T dO,
 // each accumulated in f32 and stored in the input dtype. The dropout mask is
 // regenerated from the hash of dropout.cuh at global (query, key) indices,
-// so it is the forward's bit for bit.
+// so it is the forward's bit for bit. Neither kernel uses atomics: two
+// launches on the same inputs give the same bits.
 //
 // Bound on the H100: operations. At the fusion stack's level 0 (B 8,
 // N 3136, H 4, D 224) K3 does 3 products of 2 B H N^2 D flops (0.42 TFLOP)
-// and K4 4 (0.56 TFLOP) against 0.06 GB of q/k/v/o/dO.
+// and K4 4 (0.56 TFLOP) against 0.06 GB of q/k/v/dO/D.
 //
-// Design (bf16): mma.sync m16n8k16 with ldmatrix operand loads and the
-// register hand-over of mma_bf16.cuh, tiles of 64 rows read strided from
-// [B, N, H, D] with cp.async (no transpose, no padding; D = 224 is 14 steps
-// of 16). K3: one 8-warp block per (b, h, 128-query tile); each warp owns 16
-// query rows and keeps their 16 x D dQ accumulator in registers while the
-// block streams 64-key tiles of K and V. K4: one 8-warp block per (b, h,
-// 64-key tile) streams 64-query tiles of Q and dO; warps 0-3 own dV and
-// warps 4-7 own dK of 16 keys each, so each warp keeps one 16 x D
-// accumulator in registers (both at once would not fit in 255 registers);
-// both halves recompute S^T = K Q^T, which costs a fifth more products
-// than the minimum. D is computed in the kernels from dO (in shared memory)
-// and O (read from global memory), as the TPU kernels do. Tile loads are not
-// yet overlapped with the products.
+// Design (bf16, sm_90a; D = 224 only): every product is an asynchronous
+// warpgroup product (wgmma.mma_async, sm90.cuh) with f32 accumulators in
+// registers. A block is two warpgroups that compute; the next tiles load by
+// TMA into a two-stage ring in shared memory while they do: each stage is
+// signalled by an mbarrier, and the second warpgroup to finish with a stage
+// refills it with the tile after next, so one load is always in flight
+// behind the tile being computed. There is no separate producer warp: a
+// block of three warpgroups (or of two and one warp: registers are
+// allocated four warps at a time) may hold 168 registers a thread, and ptxas
+// then spilled the 112-register accumulators and serialised the products;
+// handing the producer's registers over with setmaxnreg did not change its
+// allocation. Two warpgroups may hold 255. Tiles come
+// straight from [B, N, H, D] through 4-D tensor maps (row stride 1792 bytes,
+// no transpose, no padding copy) as seven 32-column chunks with the 64-byte
+// swizzle; bf16 wgmma reads a shared operand in either major order, so one
+// copy of a K, V, Q or dO tile serves both the products that contract over d
+// (K-major) and those that contract over its rows (MN-major). Probabilities
+// and their gradients are converted to bf16 in registers and fed to the next
+// product as its register A operand, never through shared memory.
+//   K3: one block per (b, h, 128 queries); each consumer owns 64 query rows
+//   and keeps their 64 x 224 dQ accumulator in registers while the block
+//   streams 64-key stages of K and V: S = Q K^T and dP~ = dO V^T are issued as
+//   two groups (the softmax starts while dP~ runs; the keep bits are hashed
+//   while both run), then dQ += dS K. K3 computes D for its rows from dO and O
+//   and writes it to a [B, H, N] f32 buffer for K4.
+//   K4: one block per (b, h, 64 keys) streams 64-query stages of Q and dO.
+//   Both 64 x 224 accumulators would need 224 registers a
+//   thread, so they live in different warpgroups and S is computed once:
+//   consumer V computes S^T = K Q^T, P^T and the keep bits, and accumulates
+//   dV += dropout(P)^T dO; consumer K computes dP~^T = V dO^T and, with P^T
+//   handed over in f32 through shared memory (the sign bit marks a dropped
+//   entry) under named barriers, dS^T and dK += dS^T Q: 8 N^2 D flops, not the
+//   10 of recomputing S in both halves. K4 reads D and never O. K4's V side
+//   rebuilds P as exp(s - (m + log l)), one row value a query instead of
+//   two, which keeps the dropout instantiation within 255 registers; P moves
+//   by a few f32 ulps, far inside the bf16 rounding of dS and dV's P.
+//   Each warpgroup issues the next tile's first product right behind this
+//   tile's accumulation, so products stay queued while it runs its
+//   elementwise work.
+// Shared memory (232,448 bytes a block at most): K3 holds Q and dO of 128
+// rows (114,688) and two stages of K and V (114,688) plus 544 of D rows,
+// barriers and counts; K4 holds K and V (57,344), two stages of Q and dO
+// (114,688), two 16,384-byte P^T buffers and 32 of barriers and counts. One
+// block an SM. Key biases and the per-query (m, l, D) are read from global
+// memory (L2) while each tile's first product runs.
 //
 // Design (f32, for tight checks): 32 x 32 tiles in shared memory with plain
-// FMA, no tensor cores, any D <= 256.
+// FMA, no tensor cores, any D <= 256; each kernel computes D itself.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,6 +76,7 @@
 
 #include "dropout.cuh"
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -51,8 +87,8 @@ struct Dropout {
   float inv_keep;
 };
 
-// dot(a[0:n], b[0:n]) of a bf16 row in shared memory and one in global
-// memory, in f32; n is a multiple of 8 and both rows are 16-byte aligned.
+// dot(a[0:n], b[0:n]) of two bf16 rows in f32; n is a multiple of 8 and both
+// rows are 16-byte aligned.
 __device__ __forceinline__ float dot_bf16_rows(const __nv_bfloat16* a, const __nv_bfloat16* b,
                                                int n) {
   float acc = 0.f;
@@ -72,57 +108,202 @@ __device__ __forceinline__ float dot_bf16_rows(const __nv_bfloat16* a, const __n
 }
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kTile = 64;        // rows of a streamed K/V (K3) or Q/dO (K4) tile
-constexpr int kWarps = 8;
-constexpr int kThreadsBf16 = kWarps * 32;
-constexpr int kDqRows = kWarps * 16;  // query rows of a K3 block
+constexpr int kD = 224;             // the one bf16 head dim (BF16_HEAD_DIMS in ops/attention.py)
+constexpr int kChunks = kD / 32;    // 32-column chunks of a tile (64-byte swizzle rows)
+constexpr int kRows = 64;           // rows of a K/V (K3) or Q/dO (K4) stage; wgmma's M
+constexpr int kDqRows = 2 * kRows;  // query rows of a K3 block: one 64-row slab per consumer
+constexpr int kThreadsSm90 = 256;   // two consumer warpgroups, up to 255 registers a thread
+constexpr uint32_t kSbo = 512;      // 8 rows x 64 bytes
 
-template <int kD>
-constexpr size_t smem_dq_bf16() {
-  return sizeof(__nv_bfloat16) * (size_t)(2 * kDqRows + 2 * kTile) * (kD + 8);
-}
-template <int kD>
-constexpr size_t smem_dkv_bf16() {
-  return sizeof(__nv_bfloat16) * (size_t)(4 * kTile) * (kD + 8) + sizeof(float) * 3 * kTile;
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kD * 2; }
+__host__ __device__ constexpr uint32_t chunk_bytes(int rows) { return (uint32_t)rows * 64; }
+
+// A [B, N, H, 224] bf16 tensor as a 4-D TMA map {D, H, N, B} whose box is one
+// 32-column chunk of `rows` rows of one head. Rows past N (within a batch)
+// and columns past 224 come back as zeros.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: fetched through the
+// runtime, so the library needs no link against libcuda.
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
 }
 
-template <int kD, bool kDropout>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
-attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                 const __nv_bfloat16* __restrict__ dout, const float* __restrict__ bias,
-                 const float* __restrict__ stats, __nv_bfloat16* __restrict__ dq, int n, int nh,
+bool head_map(CUtensorMap* map, const void* base, int bsz, int n, int nh, int rows) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)nh, (cuuint64_t)n, (cuuint64_t)bsz};
+  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)nh * kD * 2,
+                                 (cuuint64_t)n * nh * kD * 2};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The seven chunk boxes of rows [row0, row0 + rows) of head h, batch b.
+__device__ __forceinline__ void load_head_tile(unsigned char* dst, const CUtensorMap* map,
+                                               uint64_t* bar, int rows, int h, int row0, int b) {
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+    tma_load_4d(dst + c * chunk_bytes(rows), map, bar, c * 32, h, row0, b);
+}
+
+// Descriptor of a K-major 64-row operand for k-step kk (16 columns of d):
+// chunk kk / 2, second half of the 64-byte row for odd kk. `slab` selects
+// rows [64 slab, 64 slab + 64) of a taller tile.
+__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int rows, int slab, int kk) {
+  return smem_desc(cta_addr(tile + (kk >> 1) * chunk_bytes(rows) + slab * chunk_bytes(kRows) +
+                            (kk & 1) * 32),
+                   16, kSbo);
+}
+// Descriptor of a 64-row tile as the MN-major B operand (k = its rows,
+// N = the 224 columns) for k-step kk (rows 16 kk ..).
+__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
+  return smem_desc(cta_addr(tile + kk * 1024), chunk_bytes(kRows), kSbo);
+}
+
+// Accumulator element e of 8-column block j (m64nN fragment): row g (+ 8 for
+// e >= 2), column 8 j + 2 t + (e & 1), in lane (g, t) = (lane / 4, lane % 4)
+// of each warp's 16 rows. Two blocks 2kk, 2kk + 1 pack into the register A
+// operand of k-step kk.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* x) {
+  a[0] = pack_bf16(x[0], x[1]);
+  a[1] = pack_bf16(x[2], x[3]);
+  a[2] = pack_bf16(x[4], x[5]);
+  a[3] = pack_bf16(x[6], x[7]);
+}
+
+// K3 shared memory: Q and dO of the block's 128 queries, two stages of K and
+// V (64 keys each), the D rows of each consumer, the barriers and release
+// counts. 229,376 bytes of tiles + 568 + 1,024 for alignment.
+struct DqSmem {
+  static constexpr uint32_t q = 0, dout = tile_bytes(kDqRows), k = 2 * tile_bytes(kDqRows);
+  static constexpr uint32_t v = k + 2 * tile_bytes(kRows), drow = v + 2 * tile_bytes(kRows);
+  static constexpr uint32_t bars = drow + 2 * kRows * 4, released = bars + 3 * 8;
+  static constexpr uint32_t bytes = released + 2 * 4 + 1024;
+};
+// K4: K and V of the block's 64 keys, two stages of Q and dO, the two f32
+// P^T exchange buffers, the barriers and release counts.
+struct DkvSmem {
+  static constexpr uint32_t k = 0, v = tile_bytes(kRows), q = 2 * tile_bytes(kRows);
+  static constexpr uint32_t dout = q + 2 * tile_bytes(kRows), xch = dout + 2 * tile_bytes(kRows);
+  static constexpr uint32_t bars = xch + 2 * kRows * kRows * 4, released = bars + 3 * 8;
+  static constexpr uint32_t bytes = released + 2 * 4 + 1024;
+};
+static_assert(DqSmem::bytes <= 232448 && DkvSmem::bytes <= 232448, "shared memory");
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
+// Shared by K3 and K4: stage s of the two-stage ring holds one 64-row tile
+// of two tensors (K and V in K3, Q and dO in K4), tile t in stage t % 2.
+struct Ring {
+  uint64_t* full;        // [2] mbarriers: the stage's TMA bytes have landed
+  uint32_t* released;    // [2] counts of consumer warpgroups done with the stage
+  unsigned char* a;      // stage 0 of the first tensor; stage 1 follows
+  unsigned char* b;      // the same of the second
+  const CUtensorMap* map_a;
+  const CUtensorMap* map_b;
+  int h, b_idx, n_tiles;
+
+  __device__ __forceinline__ void load(int t) const {
+    const int s = t & 1;
+    mbar_arrive_expect_tx(&full[s], 2 * tile_bytes(kRows));
+    load_head_tile(a + s * tile_bytes(kRows), map_a, &full[s], kRows, h, t * kRows, b_idx);
+    load_head_tile(b + s * tile_bytes(kRows), map_b, &full[s], kRows, h, t * kRows, b_idx);
+  }
+  __device__ __forceinline__ void wait(int t) const { mbar_wait(&full[t & 1], (t >> 1) & 1); }
+  // Called by every thread of a consumer warpgroup once its products on tile
+  // t have completed: the second warpgroup to finish refills the stage with
+  // tile t + 2. The count only grows, so its parity tells first from second.
+  __device__ __forceinline__ void release(int t, int wg) const {
+    named_bar_sync(5 + wg, 128);  // the whole warpgroup is done with the stage
+    if ((threadIdx.x & 127) == 0) {
+      const uint32_t before = atomicAdd(&released[t & 1], 1u);
+      if ((before & 1u) && t + 2 < n_tiles) load(t + 2);
+    }
+  }
+};
+
+// K3: one block per (128-query tile, h, b); consumer warpgroup c owns query
+// rows [64 c, 64 c + 64) of the tile.
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreadsSm90, 1)
+attn_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                 const float* __restrict__ bias, const float* __restrict__ stats,
+                 float* __restrict__ dbuf, __nv_bfloat16* __restrict__ dq, int n, int nh,
                  float scale, Dropout drop) {
-  constexpr int kNT = kD / 8;     // 8-wide column tiles of the dQ accumulator
-  constexpr int kST = kTile / 8;  // 8-key column tiles of a score tile
-  constexpr int ld = kD + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kDqRows * ld;
-  __nv_bfloat16* Ks = dOs + kDqRows * ld;
-  __nv_bfloat16* Vs = Ks + kTile * ld;
-
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  float* sdrow = reinterpret_cast<float*>(sm + DqSmem::drow);  // [2 consumers][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + DqSmem::bars);
+  uint64_t* qbar = bars;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kDqRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int c = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0), tid = threadIdx.x & 127;
+  const Ring ring{bars + 1, reinterpret_cast<uint32_t*>(sm + DqSmem::released), sm + DqSmem::k,
+                  sm + DqSmem::v, &tm_k, &tm_v, h, b, (n + kRows - 1) / kRows};
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(&ring.full[0], 1);
+    mbar_init(&ring.full[1], 1);
+    ring.released[0] = ring.released[1] = 0u;
+    fence_mbar_init();
+    mbar_arrive_expect_tx(qbar, 2 * tile_bytes(kDqRows));
+    load_head_tile(sm + DqSmem::q, &tm_q, qbar, kDqRows, h, q0, b);
+    load_head_tile(sm + DqSmem::dout, &tm_do, qbar, kDqRows, h, q0, b);
+    ring.load(0);
+    if (ring.n_tiles > 1) ring.load(1);
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const size_t row_stride = (size_t)nh * kD;
   const size_t head_off = (size_t)b * n * row_stride + (size_t)h * kD;
-  const float* key_bias = bias + (size_t)b * n;
+  const int slab0 = q0 + c * kRows;
+  const int qa = slab0 + warp * 16 + g, qb = qa + 8;
   const float* st = stats + ((size_t)b * nh + h) * n * 2;
-  const int r0 = warp * 16;
-  const int qa = q0 + r0 + g, qb = qa + 8;
+  const float* key_bias = bias + (size_t)b * n;
 
-  load_tile_async<kD, kThreadsBf16>(Qs, q + head_off, row_stride, q0, kDqRows, n);
-  load_tile_async<kD, kThreadsBf16>(dOs, dout + head_off, row_stride, q0, kDqRows, n);
-  load_tile_async<kD, kThreadsBf16>(Ks, k + head_off, row_stride, 0, kTile, n);
-  load_tile_async<kD, kThreadsBf16>(Vs, v + head_off, row_stride, 0, kTile, n);
-  cp_async_commit();
-
-  // Row statistics of rows g and g + 8 (rows past N: P is never used).
-  const float m_a = qa < n ? st[(size_t)qa * 2] : 0.f, l_a = qa < n ? st[(size_t)qa * 2 + 1] : 1.f;
-  const float m_b = qb < n ? st[(size_t)qb * 2] : 0.f, l_b = qb < n ? st[(size_t)qb * 2 + 1] : 1.f;
-  const float inv_la = 1.f / l_a, inv_lb = 1.f / l_b;
+  // D = rowsum(dO * O) of the slab while the first tiles load: two threads a
+  // row, 112 columns each, written once to dbuf for K4.
+  {
+    const int r = tid >> 1, half = tid & 1;
+    float d = 0.f;
+    if (slab0 + r < n) {
+      const size_t off = head_off + (size_t)(slab0 + r) * row_stride + half * (kD / 2);
+      d = dot_bf16_rows(dout + off, o + off, kD / 2);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      sdrow[c * kRows + r] = d;
+      if (slab0 + r < n) dbuf[((size_t)b * nh + h) * n + slab0 + r] = d;
+    }
+  }
+  __syncthreads();  // D rows, and the barriers' initialisation, visible to all
+  const float d_a = sdrow[c * kRows + warp * 16 + g], d_b = sdrow[c * kRows + warp * 16 + g + 8];
+  const float m_a = qa < n ? st[(size_t)qa * 2] : 0.f, m_b = qb < n ? st[(size_t)qb * 2] : 0.f;
+  const float il_a = qa < n ? 1.f / st[(size_t)qa * 2 + 1] : 0.f;  // 0: P = 0 past N
+  const float il_b = qb < n ? 1.f / st[(size_t)qb * 2 + 1] : 0.f;
   uint32_t drop_a = 0, drop_b = 0;
   if constexpr (kDropout) {
     const uint32_t cell = (uint32_t)(b * nh + h);
@@ -130,298 +311,332 @@ attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     drop_b = dropout_row((uint32_t)qb, drop.seed, cell);
   }
 
-  cp_async_wait_all();
-  __syncthreads();
+  float acc[112];
+#pragma unroll
+  for (int i = 0; i < 112; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+  const unsigned char* Qs = sm + DqSmem::q;
+  const unsigned char* dOs = sm + DqSmem::dout;
 
-  // D of rows g and g + 8: the quad's four lanes split the head dim.
-  float d_a = 0.f, d_b = 0.f;
-  {
-    constexpr int part = kD / 4;  // 56 at D = 224: seven 16-byte vectors
-    static_assert(part % 8 == 0, "head dim / 4 must be a multiple of 8");
-    if (qa < n)
-      d_a = dot_bf16_rows(dOs + (r0 + g) * ld + t * part,
-                          o + head_off + (size_t)qa * row_stride + t * part, part);
-    if (qb < n)
-      d_b = dot_bf16_rows(dOs + (r0 + g + 8) * ld + t * part,
-                          o + head_off + (size_t)qb * row_stride + t * part, part);
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      d_a += __shfl_xor_sync(0xffffffffu, d_a, off);
-      d_b += __shfl_xor_sync(0xffffffffu, d_b, off);
-    }
-  }
+  for (int t = 0; t < ring.n_tiles; ++t) {
+    const unsigned char* Ks = ring.a + (t & 1) * tile_bytes(kRows);
+    const unsigned char* Vs = ring.b + (t & 1) * tile_bytes(kRows);
+    ring.wait(t);
 
-  float acc[kNT][4];
+    // S = Q K^T and dP~ = dO V^T for the slab's 64 queries x 64 keys, as two
+    // groups so the softmax can start while dP~ is still in flight.
+    float sc[32], dp[32];
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int kk = 0; kk < 2 * kChunks; ++kk)
+      wgmma_m64n64k16_ss(sc, kmajor_desc(Qs, kDqRows, c, kk), kmajor_desc(Ks, kRows, 0, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 2 * kChunks; ++kk)
+      wgmma_m64n64k16_ss(dp, kmajor_desc(dOs, kDqRows, c, kk), kmajor_desc(Vs, kRows, 0, kk), kk > 0);
+    wgmma_commit();
 
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    // S = Q K^T and dP~ = dO V^T for this warp's 16 rows x 64 keys.
-    float s[kST][4], dp[kST][4];
+    // While the products run: this tile's key biases and keep bits.
+    float kb[16];
 #pragma unroll
-    for (int j = 0; j < kST; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a<ld>(aq, Qs, r0, kk * 16);
-      load_a<ld>(ado, dOs, r0, kk * 16);
-#pragma unroll
-      for (int j = 0; j < kST / 2; ++j) {
-        uint32_t bk[4], bv[4];
-        load_b_rows_n<ld>(bk, Ks, j * 16, kk * 16);
-        load_b_rows_n<ld>(bv, Vs, j * 16, kk * 16);
-        mma_bf16(s[2 * j], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * j + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * j], ado, bv[0], bv[1]);
-        mma_bf16(dp[2 * j + 1], ado, bv[2], bv[3]);
+      for (int e = 0; e < 2; ++e) {
+        const int key = t * kRows + j * 8 + 2 * t4 + e;
+        kb[2 * j + e] = key < n ? key_bias[key] : -INFINITY;
       }
-    }
-    // dS = P * (dropout(dP~) - D), packed as the A operand of dS K.
-    uint32_t da[kTile / 16][4];
+    uint32_t keep = 0xffffffffu;
+    if constexpr (kDropout) {
+      keep = 0u;
 #pragma unroll
-    for (int j = 0; j < kST; ++j) {
-      const int key = k0 + j * 8 + 2 * t;
-      const float bias0 = key < n ? key_bias[key] : -INFINITY;
-      const float bias1 = key + 1 < n ? key_bias[key + 1] : -INFINITY;
-      float ds[4];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool row_b = e >= 2;
-        const float sc = s[j][e] * scale + ((e & 1) ? bias1 : bias0);
-        const float p = row_b ? fast_exp_diff(sc, m_b) * inv_lb : fast_exp_diff(sc, m_a) * inv_la;
-        float dpe = dp[j][e];
-        if constexpr (kDropout)
-          dpe = dropout_keep(row_b ? drop_b : drop_a, (uint32_t)(key + (e & 1)), drop.thresh)
-                    ? dpe * drop.inv_keep : 0.f;
-        ds[e] = p * (dpe - (row_b ? d_b : d_a));
-      }
-      da[j / 2][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      da[j / 2][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t key = (uint32_t)(t * kRows + j * 8 + 2 * t4 + (e & 1));
+          keep |= (uint32_t)dropout_keep(e >= 2 ? drop_b : drop_a, key, drop.thresh) << (4 * j + e);
+        }
     }
-    // dQ[16 x D] += dS K.
+
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
+    for (int i = 0; i < 32; ++i) {  // P, in place
+      const float x = sc[i] * scale + kb[2 * (i >> 2) + (i & 1)];
+      sc[i] = (i & 3) >= 2 ? fast_exp_diff(x, m_b) * il_b : fast_exp_diff(x, m_a) * il_a;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-      for (int j = 0; j < kNT / 2; ++j) {
-        uint32_t bk[4];
-        load_b_rows_k<ld>(bk, Ks, kk * 16, j * 16);
-        mma_bf16(acc[2 * j], da[kk], bk[0], bk[1]);
-        mma_bf16(acc[2 * j + 1], da[kk], bk[2], bk[3]);
-      }
+    for (int i = 0; i < 32; ++i) {  // dS = P * (dropout(dP~) - D), in place
+      float x = dp[i];
+      if constexpr (kDropout) x = (keep >> i) & 1u ? x * drop.inv_keep : 0.f;
+      dp[i] = sc[i] * (x - ((i & 3) >= 2 ? d_b : d_a));
     }
-    __syncthreads();  // every warp is done with this K/V tile
-    if (k0 + kTile < n) {
-      load_tile_async<kD, kThreadsBf16>(Ks, k + head_off, row_stride, k0 + kTile, kTile, n);
-      load_tile_async<kD, kThreadsBf16>(Vs, v + head_off, row_stride, k0 + kTile, kTile, n);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-    }
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(a[kk], dp + 8 * kk);
+
+    // dQ[64 x 224] += dS K.
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n224k16_rs_mn(acc, a[kk], mnmajor_desc(Ks, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    ring.release(t, c);
   }
 
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int c = j * 8 + 2 * t;
+  for (int j = 0; j < 28; ++j) {
+    const int col = j * 8 + 2 * t4;
     if (qa < n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + head_off + (size_t)qa * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dq + head_off + (size_t)qa * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * j] * scale, acc[4 * j + 1] * scale);
     if (qb < n)
-      *reinterpret_cast<__nv_bfloat162*>(dq + head_off + (size_t)qb * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dq + head_off + (size_t)qb * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
 }
 
-template <int kD, bool kDropout>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
-attn_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
-                  const __nv_bfloat16* __restrict__ dout, const float* __restrict__ bias,
-                  const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, int n, int nh, float scale, Dropout drop) {
-  constexpr int kNT = kD / 8;
-  constexpr int kST = kTile / 8;  // 8-query column tiles of a transposed score tile
-  constexpr int ld = kD + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTile * ld;
-  __nv_bfloat16* Qs = Vs + kTile * ld;
-  __nv_bfloat16* dOs = Qs + kTile * ld;
-  float* qm = reinterpret_cast<float*>(dOs + kTile * ld);
-  float* qinv_l = qm + kTile;
-  float* qd = qinv_l + kTile;
+// K4: one block per (64-key tile, h, b). Consumer 0 ("V") owns S^T, P^T and
+// dV; consumer 1 ("K") owns dP^T, dS^T and dK. P^T crosses in f32 through
+// one of two shared buffers, its sign bit set where dropout drops it.
+constexpr int kXchFull = 1, kXchEmpty = 3;  // named barriers 1-2 and 3-4
 
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreadsSm90, 1)
+attn_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                  const float* __restrict__ bias, const float* __restrict__ stats,
+                  const float* __restrict__ dbuf, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int n, int nh, float scale, Dropout drop) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  float4* xch = reinterpret_cast<float4*>(sm + DkvSmem::xch);  // [2][8][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + DkvSmem::bars);
+  uint64_t* kvbar = bars;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int key0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool dk_warp = warp >= 4;
-  const int kr0 = (warp & 3) * 16;  // this warp's 16 keys within the tile
-  const size_t row_stride = (size_t)nh * kD;
-  const size_t head_off = (size_t)b * n * row_stride + (size_t)h * kD;
-  const float* st = stats + ((size_t)b * nh + h) * n * 2;
-  const int ka = key0 + kr0 + g, kb = ka + 8;  // rows g and g + 8 are keys
+  const int key0 = blockIdx.x * kRows;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0), tid = threadIdx.x & 127;
+  const size_t cell = (size_t)b * nh + h;
+  const Ring ring{bars + 1, reinterpret_cast<uint32_t*>(sm + DkvSmem::released), sm + DkvSmem::q,
+                  sm + DkvSmem::dout, &tm_q, &tm_do, h, b, (n + kRows - 1) / kRows};
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    mbar_init(&ring.full[0], 1);
+    mbar_init(&ring.full[1], 1);
+    ring.released[0] = ring.released[1] = 0u;
+    fence_mbar_init();
+    mbar_arrive_expect_tx(kvbar, 2 * tile_bytes(kRows));
+    load_head_tile(sm + DkvSmem::k, &tm_k, kvbar, kRows, h, key0, b);
+    load_head_tile(sm + DkvSmem::v, &tm_v, kvbar, kRows, h, key0, b);
+    ring.load(0);
+    if (ring.n_tiles > 1) ring.load(1);
+  }
+  __syncthreads();
+
+  const bool v_side = wg == 0;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ka = key0 + warp * 16 + g, kb = ka + 8;  // this thread's two keys (rows)
   const float bias_a = ka < n ? bias[(size_t)b * n + ka] : -INFINITY;
   const float bias_b = kb < n ? bias[(size_t)b * n + kb] : -INFINITY;
-  const uint32_t cell = (uint32_t)(b * nh + h);
+  const float2* st = reinterpret_cast<const float2*>(stats) + cell * n;  // (m, l) a query
+  const float* drow = dbuf + cell * n;
+  const unsigned char* Ks = sm + DkvSmem::k;
+  const unsigned char* Vs = sm + DkvSmem::v;
+  if (!v_side) {  // both exchange buffers start free
+    named_bar_arrive(kXchEmpty, 256);
+    named_bar_arrive(kXchEmpty + 1, 256);
+  }
 
-  load_tile_async<kD, kThreadsBf16>(Ks, k + head_off, row_stride, key0, kTile, n);
-  load_tile_async<kD, kThreadsBf16>(Vs, v + head_off, row_stride, key0, kTile, n);
-  cp_async_commit();
+  float acc[112];
+#pragma unroll
+  for (int i = 0; i < 112; ++i) acc[i] = 0.f;
+  mbar_wait(kvbar, 0);
 
-  float acc[kNT][4];
+  // V side: S^T = K Q^T; K side: dP~^T = V dO^T (64 keys x 64 queries of
+  // tile t).
+  float x[32];
+  auto issue_first = [&](int t) {
+    const int s = t & 1;
+    ring.wait(t);
+    fence_regs(x);
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    for (int kk = 0; kk < 2 * kChunks; ++kk)
+      wgmma_m64n64k16_ss(x, kmajor_desc(v_side ? Ks : Vs, kRows, 0, kk),
+                         kmajor_desc((v_side ? ring.a : ring.b) + s * tile_bytes(kRows), kRows, 0, kk),
+                         kk > 0);
+    wgmma_commit();
+  };
 
-  for (int q0 = 0; q0 < n; q0 += kTile) {
-    load_tile_async<kD, kThreadsBf16>(Qs, q + head_off, row_stride, q0, kTile, n);
-    load_tile_async<kD, kThreadsBf16>(dOs, dout + head_off, row_stride, q0, kTile, n);
-    cp_async_commit();
-    if (threadIdx.x < kTile) {
-      const int qi = q0 + threadIdx.x;
-      qm[threadIdx.x] = qi < n ? st[(size_t)qi * 2] : 0.f;
-      qinv_l[threadIdx.x] = qi < n ? 1.f / st[(size_t)qi * 2 + 1] : 0.f;  // 0: P = 0 past N
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    {  // D of the tile's 64 queries: four lanes a query split the head dim.
-      constexpr int part = kD / 4;
-      const int r = threadIdx.x >> 2, quarter = threadIdx.x & 3;
-      float d = 0.f;
-      if (q0 + r < n)
-        d = dot_bf16_rows(dOs + r * ld + quarter * part,
-                          o + head_off + (size_t)(q0 + r) * row_stride + quarter * part, part);
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      if (quarter == 0) qd[r] = d;
-    }
-    __syncthreads();
+  // Software pipeline: tile t + 1's first product is issued right behind
+  // tile t's accumulation, so each warpgroup keeps products queued.
+  issue_first(0);
+  uint32_t a[4][4];
+  for (int t = 0; t < ring.n_tiles; ++t) {
+    const int s = t & 1;
+    const unsigned char* Qs = ring.a + s * tile_bytes(kRows);
+    const unsigned char* dOs = ring.b + s * tile_bytes(kRows);
+    float4* xb = xch + s * 8 * 128;
 
-    // S^T = K Q^T (16 keys x 64 queries); the dK warps also dP~^T = V dO^T.
-    float s[kST][4], dp[kST][4];
+    // While the product runs: the queries' m + log l and the keep bits, or
+    // their D.
+    float qlse[16], qd[16];
+    uint32_t keep = 0xffffffffu;
+    if (v_side) {
 #pragma unroll
-    for (int j = 0; j < kST; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    if (dk_warp) {
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a<ld>(ak, Ks, kr0, kk * 16);
-        load_a<ld>(av, Vs, kr0, kk * 16);
-#pragma unroll
-        for (int j = 0; j < kST / 2; ++j) {
-          uint32_t bq[4], bd[4];
-          load_b_rows_n<ld>(bq, Qs, j * 16, kk * 16);
-          load_b_rows_n<ld>(bd, dOs, j * 16, kk * 16);
-          mma_bf16(s[2 * j], ak, bq[0], bq[1]);
-          mma_bf16(s[2 * j + 1], ak, bq[2], bq[3]);
-          mma_bf16(dp[2 * j], av, bd[0], bd[1]);
-          mma_bf16(dp[2 * j + 1], av, bd[2], bd[3]);
+        for (int e = 0; e < 2; ++e) {
+          const int qi = t * kRows + j * 8 + 2 * t4 + e;
+          const float2 ml = qi < n ? st[qi] : make_float2(INFINITY, 1.f);  // P = 0 past N
+          qlse[2 * j + e] = ml.x + logf(ml.y);
         }
+      if constexpr (kDropout) {
+        keep = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t row = dropout_row((uint32_t)(t * kRows + j * 8 + 2 * t4 + e), drop.seed,
+                                             (uint32_t)cell);
+            keep |= (uint32_t)dropout_keep(row, (uint32_t)ka, drop.thresh) << (4 * j + e);
+            keep |= (uint32_t)dropout_keep(row, (uint32_t)kb, drop.thresh) << (4 * j + e + 2);
+          }
       }
     } else {
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t ak[4];
-        load_a<ld>(ak, Ks, kr0, kk * 16);
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < kST / 2; ++j) {
-          uint32_t bq[4];
-          load_b_rows_n<ld>(bq, Qs, j * 16, kk * 16);
-          mma_bf16(s[2 * j], ak, bq[0], bq[1]);
-          mma_bf16(s[2 * j + 1], ak, bq[2], bq[3]);
+        for (int e = 0; e < 2; ++e) {
+          const int qi = t * kRows + j * 8 + 2 * t4 + e;
+          qd[2 * j + e] = qi < n ? drow[qi] : 0.f;
         }
-      }
     }
+    wgmma_wait<1>();  // tile t - 1's accumulation is done
+    if (t > 0) ring.release(t - 1, wg);
+    wgmma_wait<0>();
+    fence_regs(x);
 
-    // dV warps: dropout(P)^T; dK warps: dS^T = P^T * (dropout(dP~^T) - D).
-    uint32_t pa[kTile / 16][4];
+    if (v_side) {
 #pragma unroll
-    for (int j = 0; j < kST; ++j) {
-      const int qc = j * 8 + 2 * t;  // tile-local query of element 0
-      float x[4];
+      for (int i = 0; i < 32; ++i)  // P^T = exp(s - m) / l, f32
+        x[i] = fast_exp_diff(x[i] * scale + ((i & 3) >= 2 ? bias_b : bias_a),
+                             qlse[2 * (i >> 2) + (i & 1)]);
+      named_bar_sync(kXchEmpty + s, 256);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool row_b = e >= 2;
-        const int ql = qc + (e & 1);
-        const float sc = s[j][e] * scale + (row_b ? bias_b : bias_a);
-        const float p = fast_exp_diff(sc, qm[ql]) * qinv_l[ql];
-        bool keep = true;
-        if constexpr (kDropout)
-          keep = dropout_keep(dropout_row((uint32_t)(q0 + ql), drop.seed, cell),
-                              (uint32_t)(row_b ? kb : ka), drop.thresh);
-        if (dk_warp) {
-          float dpe = dp[j][e];
-          if constexpr (kDropout) dpe = keep ? dpe * drop.inv_keep : 0.f;
-          x[e] = p * (dpe - qd[ql]);
-        } else {
-          x[e] = kDropout ? (keep ? p * drop.inv_keep : 0.f) : p;
+      for (int k4 = 0; k4 < 8; ++k4) {
+        float4 v4 = make_float4(x[4 * k4], x[4 * k4 + 1], x[4 * k4 + 2], x[4 * k4 + 3]);
+        if constexpr (kDropout) {
+          float* f = &v4.x;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!((keep >> (4 * k4 + e)) & 1u)) f[e] = -f[e];  // sign bit: dropped
         }
+        xb[k4 * 128 + tid] = v4;
       }
-      pa[j / 2][(j & 1) * 2] = pack_bf16(x[0], x[1]);
-      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(x[2], x[3]);
-    }
-    // dV[16 x D] += dropout(P)^T dO, or dK[16 x D] += dS^T Q.
-    const __nv_bfloat16* rhs = dk_warp ? Qs : dOs;
+      __threadfence_block();
+      named_bar_arrive(kXchFull + s, 256);
+      if constexpr (kDropout) {
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kNT / 2; ++j) {
-        uint32_t bb[4];
-        load_b_rows_k<ld>(bb, rhs, kk * 16, j * 16);
-        mma_bf16(acc[2 * j], pa[kk], bb[0], bb[1]);
-        mma_bf16(acc[2 * j + 1], pa[kk], bb[2], bb[3]);
+        for (int i = 0; i < 32; ++i) x[i] = (keep >> i) & 1u ? x[i] * drop.inv_keep : 0.f;
       }
+    } else {
+      named_bar_sync(kXchFull + s, 256);
+      float p[32];
+#pragma unroll
+      for (int k4 = 0; k4 < 8; ++k4) {
+        const float4 v4 = xb[k4 * 128 + tid];
+        p[4 * k4] = v4.x;
+        p[4 * k4 + 1] = v4.y;
+        p[4 * k4 + 2] = v4.z;
+        p[4 * k4 + 3] = v4.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {  // dS^T = P^T * (dropout(dP~^T) - D)
+        float dpe = x[i];
+        if constexpr (kDropout) dpe = signbit(p[i]) ? 0.f : dpe * drop.inv_keep;
+        x[i] = fabsf(p[i]) * (dpe - qd[2 * (i >> 2) + (i & 1)]);
+      }
+      if (t + 2 < ring.n_tiles) named_bar_arrive(kXchEmpty + s, 256);
     }
-    __syncthreads();  // every warp is done with this Q/dO tile
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pack_a(a[kk], x + 8 * kk);
+
+    // dV[64 x 224] += dropout(P)^T dO, or dK[64 x 224] += dS^T Q; the
+    // registers of a stay untouched until it is done.
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n224k16_rs_mn(acc, a[kk], mnmajor_desc(v_side ? dOs : Qs, kk), 1);
+    wgmma_commit();
+    if (t + 1 < ring.n_tiles) issue_first(t + 1);
   }
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-  __nv_bfloat16* dst = dk_warp ? dk : dv;
-  const float sc = dk_warp ? scale : 1.f;
+  __nv_bfloat16* dst = v_side ? dv : dk;
+  const float sc = v_side ? 1.f : scale;
+  const size_t row_stride = (size_t)nh * kD;
+  const size_t head_off = (size_t)b * n * row_stride + (size_t)h * kD;
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int c = j * 8 + 2 * t;
+  for (int j = 0; j < 28; ++j) {
+    const int col = j * 8 + 2 * t4;
     if (ka < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (size_t)ka * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][0] * sc, acc[j][1] * sc);
+      *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (size_t)ka * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * j] * sc, acc[4 * j + 1] * sc);
     if (kb < n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (size_t)kb * row_stride + c) =
-          __floats2bfloat162_rn(acc[j][2] * sc, acc[j][3] * sc);
+      *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (size_t)kb * row_stride + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2] * sc, acc[4 * j + 3] * sc);
   }
 }
 
-template <int kD, bool kDropout>
-cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const void* o,
-                           const void* dout, const void* bias, const void* stats, void* dq,
-                           int bsz, int n, int nh, float scale, Dropout drop, cudaStream_t s) {
-  constexpr size_t smem = smem_dq_bf16<kD>();
-  auto* kernel = attn_bwd_dq_bf16<kD, kDropout>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct HeadMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+bool make_maps(HeadMaps* m, const void* q, const void* k, const void* v, const void* dout,
+               int bsz, int n, int nh, int q_rows, int kv_rows) {
+  return head_map(&m->q, q, bsz, n, nh, q_rows) && head_map(&m->k, k, bsz, n, nh, kv_rows) &&
+         head_map(&m->v, v, bsz, n, nh, kv_rows) && head_map(&m->dout, dout, bsz, n, nh, q_rows);
+}
+
+template <bool kDropout>
+cudaError_t launch_dq_sm90(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const void* bias, const void* stats, void* dbuf,
+                           void* dq, int bsz, int n, int nh, float scale, Dropout drop,
+                           cudaStream_t s) {
+  HeadMaps m;
+  if (!make_maps(&m, q, k, v, dout, bsz, n, nh, kDqRows, kRows)) return cudaErrorInvalidValue;
+  auto* kernel = attn_bwd_dq_sm90<kDropout>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)DqSmem::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kDqRows - 1) / kDqRows, nh, bsz);
-  kernel<<<grid, kThreadsBf16, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)bias,
-      (const float*)stats, (__nv_bfloat16*)dq, n, nh, scale, drop);
+  kernel<<<dim3((n + kDqRows - 1) / kDqRows, nh, bsz), kThreadsSm90, DqSmem::bytes, s>>>(
+      m.q, m.k, m.v, m.dout, (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
+      (const float*)bias, (const float*)stats, (float*)dbuf, (__nv_bfloat16*)dq, n, nh, scale, drop);
   return cudaSuccess;
 }
 
-template <int kD, bool kDropout>
-cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* bias, const void* stats, void* dk,
+template <bool kDropout>
+cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                            const void* bias, const void* stats, const void* dbuf, void* dk,
                             void* dv, int bsz, int n, int nh, float scale, Dropout drop,
                             cudaStream_t s) {
-  constexpr size_t smem = smem_dkv_bf16<kD>();
-  auto* kernel = attn_bwd_dkv_bf16<kD, kDropout>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  HeadMaps m;
+  if (!make_maps(&m, q, k, v, dout, bsz, n, nh, kRows, kRows)) return cudaErrorInvalidValue;
+  auto* kernel = attn_bwd_dkv_sm90<kDropout>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)DkvSmem::bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, nh, bsz);
-  kernel<<<grid, kThreadsBf16, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, (const float*)bias,
-      (const float*)stats, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, nh, scale, drop);
+  kernel<<<dim3((n + kRows - 1) / kRows, nh, bsz), kThreadsSm90, DkvSmem::bytes, s>>>(
+      m.q, m.k, m.v, m.dout, (const float*)bias, (const float*)stats, (const float*)dbuf,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, nh, scale, drop);
   return cudaSuccess;
 }
 
@@ -642,22 +857,25 @@ bool bad_shape(int bsz, int n, int nh, int d, int is_bf16) {
 
 }  // namespace
 
-// Arguments as tf_attention_fwd's, plus o (the forward's output), dout and
-// the gradient outputs; stats are the forward's [B, H, N, 2] (m, l).
+// Arguments as tf_attention_fwd's, plus o (the forward's output), dout, the
+// [B, H, N] f32 row buffer d_rows and the gradient outputs; stats are the
+// forward's [B, H, N, 2] (m, l). The bf16 path writes D = rowsum(dO * O) to
+// d_rows for tf_attention_bwd_dkv, which reads it in place of O; the f32
+// path computes D in each kernel and leaves d_rows alone.
 extern "C" int tf_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* bias, const void* stats,
-                                   void* dq, int bsz, int n, int nh, int d, float scale,
-                                   int is_bf16, unsigned seed, unsigned thresh, float inv_keep,
-                                   int dropout, void* stream) {
+                                   void* d_rows, void* dq, int bsz, int n, int nh, int d,
+                                   float scale, int is_bf16, unsigned seed, unsigned thresh,
+                                   float inv_keep, int dropout, void* stream) {
   if (bad_shape(bsz, n, nh, d, is_bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Dropout drop{seed, thresh, inv_keep};
   cudaError_t err;
   if (is_bf16) {
-    err = dropout ? launch_dq_bf16<224, true>(q, k, v, o, dout, bias, stats, dq, bsz, n, nh, scale,
-                                              drop, s)
-                  : launch_dq_bf16<224, false>(q, k, v, o, dout, bias, stats, dq, bsz, n, nh,
-                                               scale, drop, s);
+    err = dropout ? launch_dq_sm90<true>(q, k, v, o, dout, bias, stats, d_rows, dq, bsz, n, nh,
+                                         scale, drop, s)
+                  : launch_dq_sm90<false>(q, k, v, o, dout, bias, stats, d_rows, dq, bsz, n, nh,
+                                          scale, drop, s);
   } else {
     const size_t smem = smem_dq_f32(d);
     auto* kernel = dropout ? attn_bwd_dq_f32<true> : attn_bwd_dq_f32<false>;
@@ -671,20 +889,22 @@ extern "C" int tf_attention_bwd_dq(const void* q, const void* k, const void* v, 
   return (int)cudaGetLastError();
 }
 
+// Launch after tf_attention_bwd_dq on the same stream: the bf16 path reads
+// the D rows it wrote (and not o).
 extern "C" int tf_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
                                     const void* dout, const void* bias, const void* stats,
-                                    void* dk, void* dv, int bsz, int n, int nh, int d, float scale,
-                                    int is_bf16, unsigned seed, unsigned thresh, float inv_keep,
-                                    int dropout, void* stream) {
+                                    const void* d_rows, void* dk, void* dv, int bsz, int n, int nh,
+                                    int d, float scale, int is_bf16, unsigned seed,
+                                    unsigned thresh, float inv_keep, int dropout, void* stream) {
   if (bad_shape(bsz, n, nh, d, is_bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Dropout drop{seed, thresh, inv_keep};
   cudaError_t err;
   if (is_bf16) {
-    err = dropout ? launch_dkv_bf16<224, true>(q, k, v, o, dout, bias, stats, dk, dv, bsz, n, nh,
-                                               scale, drop, s)
-                  : launch_dkv_bf16<224, false>(q, k, v, o, dout, bias, stats, dk, dv, bsz, n,
-                                                nh, scale, drop, s);
+    err = dropout ? launch_dkv_sm90<true>(q, k, v, dout, bias, stats, d_rows, dk, dv, bsz, n, nh,
+                                          scale, drop, s)
+                  : launch_dkv_sm90<false>(q, k, v, dout, bias, stats, d_rows, dk, dv, bsz, n, nh,
+                                           scale, drop, s);
   } else {
     const size_t smem = smem_dkv_f32(d);
     auto* kernel = dropout ? attn_bwd_dkv_f32<true> : attn_bwd_dkv_f32<false>;

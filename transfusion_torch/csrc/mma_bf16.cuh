@@ -1,7 +1,7 @@
-// Building blocks shared by the attention kernels (K2 forward, K3/K4
-// backward): cp.async tile loads into padded shared-memory rows, ldmatrix
-// fragment loads, and the mma.sync m16n8k16 bf16 product with f32
-// accumulation.
+// Building blocks of the attention forward kernels (K2, K7) and helpers
+// shared with the backward (K3/K4): cp.async tile loads into padded
+// shared-memory rows, ldmatrix fragment loads, the mma.sync m16n8k16 bf16
+// product with f32 accumulation, bf16 packing and the fast exp.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16): in lane (g, t) = (lane / 4,
 // lane % 4) the 16x8 f32 accumulator holds rows g and g + 8, columns 2t and
@@ -42,9 +42,6 @@ static __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one committed group is still in flight.
 static __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
-}
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 static __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -93,28 +90,4 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
     else
       *reinterpret_cast<uint4*>(s) = make_uint4(0u, 0u, 0u, 0u);
   }
-}
-
-// A fragment (16 rows x 16 of the k dim) from row-major shared rows
-// [row0, row0 + 16), k columns [k0, k0 + 16).
-template <int kLd>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s, int row0, int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, s + (row0 + (lane & 15)) * kLd + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-wide n tiles [n0, n0 + 16) from shared rows indexed by
-// n (k along the row): r[0..1] for n0.., r[2..3] for n0 + 8.
-template <int kLd>
-__device__ __forceinline__ void load_b_rows_n(uint32_t (&r)[4], const __nv_bfloat16* s, int n0, int k0) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
-  ldmatrix_x4(r, s + (n0 + (mi >> 1) * 8 + mr) * kLd + k0 + (mi & 1) * 8);
-}
-
-// B fragments of two 8-wide n tiles [n0, n0 + 16) from shared rows indexed by
-// k (n along the row), transposed on the fly.
-template <int kLd>
-__device__ __forceinline__ void load_b_rows_k(uint32_t (&r)[4], const __nv_bfloat16* s, int k0, int n0) {
-  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
-  ldmatrix_x4_trans(r, s + (k0 + (mi & 1) * 8 + mr) * kLd + n0 + (mi >> 1) * 8);
 }

@@ -1,6 +1,6 @@
 """Self-attention in the projections' [B, N, H, D] layout with probability
 dropout: kernel K2 (forward), kernels K3/K4 (backward) and their plain
-versions.
+versions; and K7, exact self-attention without dropout in either layout.
 
 Port of ``transfusion_tpu/ops/attention.py::flash_attention_train`` (Pallas
 ``_fwd_kernel`` at :226, ``_bwd_dq_kernel`` at :253, ``_bwd_dkv_kernel`` at
@@ -18,6 +18,13 @@ mask on dP, dS = P * (dP - D) rounded to the input dtype.
 ``autograd.Function``). On CUDA tensors its forward launches
 ``csrc/attention.cu`` and its backward ``csrc/attention_bwd.cu``; on CPU
 tensors both run the plain versions here.
+
+K7 (:func:`flash_self_attention` for [B, H, N, D], :func:`flash_self_attention_blhd`
+for [B, N, H, D]) ports ``transfusion_tpu/ops/attention.py::flash_self_attention``
+and ``::flash_self_attention_blhd`` (Pallas ``_attn_kernel`` at :29): the same
+softmax without dropout, statistics or gradient. On CUDA tensors it launches
+``tf_self_attention`` of ``csrc/attention.cu``, which reads either layout
+through strides; on CPU tensors it runs :func:`self_attention_plain`.
 """
 
 from __future__ import annotations
@@ -158,11 +165,12 @@ def _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, rate, seed)
                     and stats.is_contiguous(), "attention backward: stats must be [B, H, N, 2] f32")
     bias = key_bias(key_padding_mask, b, n, q.device).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    d_rows = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # D, K3 -> K4
     lib, stream = kernels.library(), kernels.stream_handle(q.device)
     common = (b, n, h, d, float(1.0 / (d ** 0.5)), int(q.dtype == torch.bfloat16),
               *_dropout_args(rate, seed), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-           bias.data_ptr(), stats.data_ptr())
+           bias.data_ptr(), stats.data_ptr(), d_rows.data_ptr())
     kernels.check(lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), "tf_attention_bwd_dq")
     kernels.LAUNCHES["attention_bwd_dq"] += 1
     kernels.check(lib.tf_attention_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(), *common),
@@ -223,3 +231,52 @@ def flash_attention_train(q, k, v, key_padding_mask=None, dropout_rate: float = 
     key_padding_mask [B, N] bool (True = ignore), seed an int32 varying per
     step and layer. Returns [B, N, H, D]."""
     return _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_rate), int(seed))
+
+
+# ------------------------------------------------ K7: exact self-attention
+def self_attention_plain(q, k, v, key_padding_mask=None):
+    """Plain PyTorch statement of K7 in [B, H, N, D], the counterpart of
+    ``xla_self_attention``: ``softmax(q k^T / sqrt(D) + bias) v`` with q and
+    k in f32, the exact row max, P rounded to v's dtype for an f32 P.V
+    product and the row sum divided out after it, as the TPU kernel does."""
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    return t(attention_plain(t(q), t(k), t(v), key_padding_mask)[0])
+
+
+def _self_attention_cuda(q, k, v, key_padding_mask, heads_first: bool):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_self_attention: the K7 kernel has no backward; train through "
+                           "flash_attention_train")
+    if heads_first:
+        b, h, n, d = q.shape
+        sb, sh, sn, _ = q.stride()
+    else:
+        b, n, h, d = q.shape
+        sb, sn, sh, _ = q.stride()
+    _check_inputs("self attention", (q, k, v), d)
+    bias = key_bias(key_padding_mask, b, n, q.device).contiguous()
+    out = torch.empty_like(q)
+    code = kernels.library().tf_self_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n, h, d,
+        sb, sn, sh, float(1.0 / (d ** 0.5)), int(q.dtype == torch.bfloat16),
+        kernels.stream_handle(q.device),
+    )
+    kernels.check(code, "tf_self_attention")
+    kernels.LAUNCHES["self_attention"] += 1
+    return out
+
+
+def flash_self_attention(q, k, v, key_padding_mask=None):
+    """Exact self-attention, q/k/v and the result [B, H, N, D];
+    key_padding_mask [B, N] bool, True = ignore. On the card it has no
+    gradient (the kernel has no backward) and raises under grad."""
+    if q.device.type == "cpu":
+        return self_attention_plain(q, k, v, key_padding_mask)
+    return _self_attention_cuda(q, k, v, key_padding_mask, heads_first=True)
+
+
+def flash_self_attention_blhd(q, k, v, key_padding_mask=None):
+    """:func:`flash_self_attention` in the projections' [B, N, H, D] layout."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, key_padding_mask)[0]
+    return _self_attention_cuda(q, k, v, key_padding_mask, heads_first=False)
