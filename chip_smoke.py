@@ -7,7 +7,8 @@ Needs one CUDA card (an H100 is what the numbers are read against) and the
 CUDA toolkit; exits non-zero at once without a card. Phases:
 
 1. build the hand-written kernels (``transfusion_torch/csrc/*.cu``) for
-   sm_90a and print the build time;
+   sm_90a and print the build time and each kernel's registers and spill
+   bytes (a spill in a wgmma kernel, ``*_sm90``, fails the run);
 2. for each kernel entry -- eval: LayerNorm, residual LayerNorm, attention
    forward, RoIAlign forward; training: attention forward with dropout,
    attention backward dQ and dK/dV (at rates 0.15 and 0, and two launches
@@ -41,8 +42,9 @@ share, top kernels).
 
 The last three lines of stdout are the ``kernels`` JSON line, the card's
 name and power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
-Any failed phase exits non-zero without the ``ok`` line. A full record goes
-to ``chiprun_out/chip_smoke.json``.
+Any failed phase exits non-zero without the ``ok`` line. A full record
+(with each kernel's share of its bound, the products' TFLOP/s and the
+ptxas report) goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,6 +127,36 @@ def max_err(a, b) -> float:
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 numbers (8 significant bits) at magnitude x."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def ptxas_report(logs: dict) -> list[dict]:
+    """Registers and spill bytes of every kernel in the build's ``ptxas -v``
+    logs, one row per entry function (names demangled by c++filt where the
+    toolkit's host has it)."""
+    rows = []
+    for src, text in logs.items():
+        name, spill = None, (0, 0)
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                rows.append({"source": src, "kernel": name, "registers": int(m.group(1)),
+                             "spill_stores": spill[0], "spill_loads": spill[1]})
+                name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = re.sub(r"^void |\(.*", "", n.replace("(anonymous namespace)::", ""))
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
 
 
 def check(name: str, err: float, tol: float, measure: str = "max|kernel - plain|") -> None:
@@ -207,7 +240,7 @@ def phase_attention(torch):
     bms, by = bound_ms(4 * B * n * nh * hd * 2 + B * n * 4 + B * nh * n * 8, flops, BF16_TC_FLOPS)
     log(f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved")
     return {"name": "attention_fwd", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": bms, "bound_by": by}
+            "library_ms": lib, "bound_ms": bms, "bound_by": by, "flops": flops}
 
 
 def _attention_inputs(torch, seed: int):
@@ -268,11 +301,13 @@ def phase_attention_dropout(torch):
           1e-5)
     ms = cuda_ms(lambda: at.attention_fwd(q, k, v, mask, DROPOUT, seed), 5, warmup=1)
     plain = cuda_ms(lambda: at.attention_plain(q, k, v, mask, DROPOUT, seed), 1, warmup=1)
-    bms, by = _attention_bound(4 * B * HEADS * N0 * N0 * HEAD_DIM, 4)
+    flops = 4 * B * HEADS * N0 * N0 * HEAD_DIM
+    bms, by = _attention_bound(flops, 4)
+    log(f"  {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s achieved")
     torch.cuda.empty_cache()
     # No PyTorch call computes this hash mask: no library time.
     return {"name": "attention_fwd_dropout", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by, "flops": flops}
 
 
 def phase_attention_bwd(torch):
@@ -350,9 +385,10 @@ def phase_attention_bwd(torch):
     del ref, qt, kt, vt
     torch.cuda.empty_cache()
     return [{"name": "attention_bwd_dq", "max_abs_err": errs["dq"], "ms": ms_dq, "plain_ms": plain,
-             "library_ms": lib_ms, "bound_ms": b_dq, "bound_by": by_dq},
+             "library_ms": lib_ms, "bound_ms": b_dq, "bound_by": by_dq, "flops": 6 * n2d},
             {"name": "attention_bwd_dkv", "max_abs_err": max(errs["dk"], errs["dv"]), "ms": ms_dkv,
-             "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_dkv, "bound_by": by_dkv}]
+             "plain_ms": plain, "library_ms": lib_ms, "bound_ms": b_dkv, "bound_by": by_dkv,
+             "flops": 8 * n2d}]
 
 
 def phase_self_attention(torch):
@@ -400,7 +436,7 @@ def phase_self_attention(torch):
     del qh, kh, vh
     torch.cuda.empty_cache()
     return {"name": "self_attention", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": bms, "bound_by": by}
+            "library_ms": lib, "bound_ms": bms, "bound_by": by, "flops": flops, "ms_bhnd": ms_bhnd}
 
 
 def _synthetic_rois(torch, g, bsz, n, hw):
@@ -878,10 +914,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.library()
     log(f"[build] {kernels.BUILD_LOG['path']} in {time.perf_counter() - t0:.1f} s")
-    for src, text in kernels.BUILD_LOG.get("ptxas", {}).items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+    ptxas = ptxas_report(kernels.BUILD_LOG.get("ptxas", {}))
+    for r in ptxas:
+        log(f"  {r['source']}: {r['kernel']}: {r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['spill_loads']} bytes spill loads")
+    # The wgmma kernels are built to keep their accumulators in registers.
+    spilled = [r["kernel"] for r in ptxas if "sm90" in r["kernel"] and r["spill_stores"] + r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
 
     results = [phase_layer_norm(torch, False), phase_layer_norm(torch, True),
                phase_attention(torch), phase_attention_dropout(torch), *phase_attention_bwd(torch),
@@ -896,7 +936,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         train_rec["profile"] = _trace(torch, "train step", train_step)
 
-    rows = []
+    rows, records = [], []
     for r in results:
         path = train_rec if r["name"] in TRAIN_KERNELS else slice_rec
         rows.append({
@@ -905,15 +945,20 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-        log(f"[{r['name']}] kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        # The record adds the share of the bound reached and, for the products, TFLOP/s.
+        records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
+                        **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
+                        **({"ms_bhnd": r["ms_bhnd"]} if "ms_bhnd" in r else {})})
+        log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
+            f"{r['plain_ms']:.4f} ms, library "
             f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "torch": torch.__version__, "kernels": rows, "slice": slice_rec,
-                   "train": train_rec,
+        json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
+                   "train": train_rec, "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(smi)

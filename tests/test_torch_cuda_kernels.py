@@ -78,6 +78,12 @@ def test_layer_norm_kernel_matches_plain(card, rows, d, dtype, residual):
     assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
 
 
+# bf16 sequence lengths around the forward's 64-key stages and 128-query
+# blocks: one query, whole stages (64, 128, 192), one past or short of a
+# block (127, 129), and a length that ends inside both (700).
+BF16_EDGE_NS = (1, 64, 127, 128, 129, 192, 700)
+
+
 @pytest.mark.parametrize("dtype,n,d", [
     (torch.float32, 70, 24),
     (torch.float32, 129, 224),
@@ -85,6 +91,7 @@ def test_layer_norm_kernel_matches_plain(card, rows, d, dtype, residual):
     (torch.bfloat16, 65, 224),
     (torch.bfloat16, 130, 224),
     (torch.bfloat16, 200, 224),
+    *((torch.bfloat16, n, 224) for n in BF16_EDGE_NS),
 ])
 def test_attention_kernel_matches_plain(card, dtype, n, d):
     """Sequences that end inside a tile, a padded key tail on one row."""
@@ -143,7 +150,9 @@ def _attn_inputs(rng, dev, dtype, n, d, b=2, h=3):
     return q, k, v, _on(mask, dev)
 
 
-@pytest.mark.parametrize("dtype,n,d", [(torch.float32, 70, 24), (torch.bfloat16, 130, 224)])
+@pytest.mark.parametrize("dtype,n,d", [
+    (torch.float32, 70, 24), (torch.bfloat16, 130, 224), *((torch.bfloat16, n, 224) for n in BF16_EDGE_NS),
+])
 def test_attention_dropout_kernel_matches_plain(card, dtype, n, d):
     """K2 at rate 0.15: the kernel keeps exactly the probabilities the plain
     version keeps (an output row with one key dropped differently would
@@ -163,6 +172,27 @@ def test_attention_dropout_kernel_matches_plain(card, dtype, n, d):
     assert _err(stats[..., 0], stats_ref[..., 0]) <= 1e-4
     rel_l = ((stats[..., 1] - stats_ref[..., 1]).abs() / stats_ref[..., 1]).max()
     assert float(rel_l) <= (1e-5 if dtype == torch.float32 else 1e-4)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.15])
+def test_attention_kernel_with_a_padded_stage(card, rate):
+    """A whole 64-key stage of one batch row is padding (keys 64-127 of
+    192): its probabilities vanish under the other stages' row maximum; the
+    other row has a padded tail."""
+    rng = np.random.default_rng(192)
+    q, k, v, _ = _attn_inputs(rng, card, torch.bfloat16, 192, 224)
+    mask = np.zeros((2, 192), bool)
+    mask[0, 64:128] = True
+    mask[1, -9:] = True
+    mask = _on(mask, card)
+    got, stats = attn.attention_fwd(q, k, v, mask, rate, 31, return_stats=True)
+    want, stats_ref = attn.attention_plain(q, k, v, mask, rate, 31)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= 2 * _bf16_ulp(float(want.float().abs().max()))
+    mean_rel = (got.float() - want.float()).abs().mean() / want.float().abs().mean()
+    assert float(mean_rel) <= 2.0 ** -7
+    assert _err(stats[..., 0], stats_ref[..., 0]) <= 1e-4
+    assert float(((stats[..., 1] - stats_ref[..., 1]).abs() / stats_ref[..., 1]).max()) <= 1e-4
 
 
 def _bwd_tolerance(dtype, want):
@@ -240,6 +270,7 @@ def test_attention_autograd_round_trip(card):
 @pytest.mark.parametrize("layout", ["bhnd", "blhd"])
 @pytest.mark.parametrize("dtype,n,d", [
     (torch.float32, 70, 24), (torch.float32, 33, 256), (torch.bfloat16, 130, 224),
+    *((torch.bfloat16, n, 224) for n in BF16_EDGE_NS),
 ])
 def test_self_attention_kernel_matches_plain(card, dtype, n, d, layout):
     """K7 in both layouts (read through strides, no transpose copy) against

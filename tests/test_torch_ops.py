@@ -5,6 +5,7 @@ Inputs are made with numpy from a seed and handed to both."""
 
 import ast
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -218,7 +219,7 @@ def test_nms_matches_jax_slot_by_slot(rng, block):
 # ------------------------------------------------ (g) no JAX in the port
 def _port_files():
     pkg = os.path.join(REPO, "transfusion_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "ab_attention_fwd.py")]
     for root, dirs, names in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output, not package source
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
@@ -241,6 +242,27 @@ def test_port_imports_no_jax():
                 names = [getattr(a, "value", "") for a in node.args[:1]]
             for name in names:
                 assert name.split(".")[0] not in banned, f"{path} imports {name}"
+
+
+def test_chip_smoke_reads_registers_and_spills_per_kernel():
+    """chip_smoke.py's reading of an ``nvcc -Xptxas -v`` log, which it
+    prints and checks (no spill in a wgmma kernel): one row per entry
+    function, its registers and spill bytes."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    log = (
+        "ptxas info    : Compiling entry function '_Z8fwd_sm90v' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z8fwd_sm90v\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 254 registers, used 16 barriers\n"
+        "ptxas info    : Compiling entry function '_Z6ln_f32v' for 'sm_90a'\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers\n")
+    rows = chip_smoke.ptxas_report({"attention.cu": log})
+    assert [(r["registers"], r["spill_stores"], r["spill_loads"]) for r in rows] == [(254, 0, 0), (40, 12, 16)]
+    assert "fwd_sm90" in rows[0]["kernel"] and "ln_f32" in rows[1]["kernel"]
+    assert {r["source"] for r in rows} == {"attention.cu"}
 
 
 # ------------------------------------------- (h) CUDA by default, no fallback

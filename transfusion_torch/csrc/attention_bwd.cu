@@ -21,8 +21,10 @@
 //
 // Design (bf16, sm_90a; D = 224 only): every product is an asynchronous
 // warpgroup product (wgmma.mma_async, sm90.cuh) with f32 accumulators in
-// registers. A block is two warpgroups that compute; the next tiles load by
-// TMA into a two-stage ring in shared memory while they do: each stage is
+// registers; the tensor maps, operand descriptors and stage ring come from
+// attention_sm90.cuh, shared with the forward. A block is two warpgroups
+// that compute; the next tiles load by TMA into a two-stage ring in shared
+// memory while they do: each stage is
 // signalled by an mbarrier, and the second warpgroup to finish with a stage
 // refills it with the tile after next, so one load is always in flight
 // behind the tile being computed. There is no separate producer warp: a
@@ -74,18 +76,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_sm90.cuh"
 #include "dropout.cuh"
-#include "mma_bf16.cuh"
-#include "sm90.cuh"
+#include "warp_reduce.cuh"
 
 namespace {
 
 constexpr int kHeadDimCap = 256;
-
-struct Dropout {
-  uint32_t seed, thresh;
-  float inv_keep;
-};
 
 // dot(a[0:n], b[0:n]) of two bf16 rows in f32; n is a multiple of 8 and both
 // rows are 16-byte aligned.
@@ -108,87 +105,7 @@ __device__ __forceinline__ float dot_bf16_rows(const __nv_bfloat16* a, const __n
 }
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kD = 224;             // the one bf16 head dim (BF16_HEAD_DIMS in ops/attention.py)
-constexpr int kChunks = kD / 32;    // 32-column chunks of a tile (64-byte swizzle rows)
-constexpr int kRows = 64;           // rows of a K/V (K3) or Q/dO (K4) stage; wgmma's M
 constexpr int kDqRows = 2 * kRows;  // query rows of a K3 block: one 64-row slab per consumer
-constexpr int kThreadsSm90 = 256;   // two consumer warpgroups, up to 255 registers a thread
-constexpr uint32_t kSbo = 512;      // 8 rows x 64 bytes
-
-__host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * kD * 2; }
-__host__ __device__ constexpr uint32_t chunk_bytes(int rows) { return (uint32_t)rows * 64; }
-
-// A [B, N, H, 224] bf16 tensor as a 4-D TMA map {D, H, N, B} whose box is one
-// 32-column chunk of `rows` rows of one head. Rows past N (within a batch)
-// and columns past 224 come back as zeros.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched through the
-// runtime, so the library needs no link against libcuda.
-EncodeTiledFn tensor_map_encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
-  }
-  return fn;
-}
-
-bool head_map(CUtensorMap* map, const void* base, int bsz, int n, int nh, int rows) {
-  const EncodeTiledFn encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)nh, (cuuint64_t)n, (cuuint64_t)bsz};
-  const cuuint64_t strides[3] = {(cuuint64_t)kD * 2, (cuuint64_t)nh * kD * 2,
-                                 (cuuint64_t)n * nh * kD * 2};  // bytes, dims 1-3
-  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The seven chunk boxes of rows [row0, row0 + rows) of head h, batch b.
-__device__ __forceinline__ void load_head_tile(unsigned char* dst, const CUtensorMap* map,
-                                               uint64_t* bar, int rows, int h, int row0, int b) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    tma_load_4d(dst + c * chunk_bytes(rows), map, bar, c * 32, h, row0, b);
-}
-
-// Descriptor of a K-major 64-row operand for k-step kk (16 columns of d):
-// chunk kk / 2, second half of the 64-byte row for odd kk. `slab` selects
-// rows [64 slab, 64 slab + 64) of a taller tile.
-__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* tile, int rows, int slab, int kk) {
-  return smem_desc(cta_addr(tile + (kk >> 1) * chunk_bytes(rows) + slab * chunk_bytes(kRows) +
-                            (kk & 1) * 32),
-                   16, kSbo);
-}
-// Descriptor of a 64-row tile as the MN-major B operand (k = its rows,
-// N = the 224 columns) for k-step kk (rows 16 kk ..).
-__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* tile, int kk) {
-  return smem_desc(cta_addr(tile + kk * 1024), chunk_bytes(kRows), kSbo);
-}
-
-// Accumulator element e of 8-column block j (m64nN fragment): row g (+ 8 for
-// e >= 2), column 8 j + 2 t + (e & 1), in lane (g, t) = (lane / 4, lane % 4)
-// of each warp's 16 rows. Two blocks 2kk, 2kk + 1 pack into the register A
-// operand of k-step kk.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* x) {
-  a[0] = pack_bf16(x[0], x[1]);
-  a[1] = pack_bf16(x[2], x[3]);
-  a[2] = pack_bf16(x[4], x[5]);
-  a[3] = pack_bf16(x[6], x[7]);
-}
 
 // K3 shared memory: Q and dO of the block's 128 queries, two stages of K and
 // V (64 keys each), the D rows of each consumer, the barriers and release
@@ -208,40 +125,6 @@ struct DkvSmem {
   static constexpr uint32_t bytes = released + 2 * 4 + 1024;
 };
 static_assert(DqSmem::bytes <= 232448 && DkvSmem::bytes <= 232448, "shared memory");
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
-
-// Shared by K3 and K4: stage s of the two-stage ring holds one 64-row tile
-// of two tensors (K and V in K3, Q and dO in K4), tile t in stage t % 2.
-struct Ring {
-  uint64_t* full;        // [2] mbarriers: the stage's TMA bytes have landed
-  uint32_t* released;    // [2] counts of consumer warpgroups done with the stage
-  unsigned char* a;      // stage 0 of the first tensor; stage 1 follows
-  unsigned char* b;      // the same of the second
-  const CUtensorMap* map_a;
-  const CUtensorMap* map_b;
-  int h, b_idx, n_tiles;
-
-  __device__ __forceinline__ void load(int t) const {
-    const int s = t & 1;
-    mbar_arrive_expect_tx(&full[s], 2 * tile_bytes(kRows));
-    load_head_tile(a + s * tile_bytes(kRows), map_a, &full[s], kRows, h, t * kRows, b_idx);
-    load_head_tile(b + s * tile_bytes(kRows), map_b, &full[s], kRows, h, t * kRows, b_idx);
-  }
-  __device__ __forceinline__ void wait(int t) const { mbar_wait(&full[t & 1], (t >> 1) & 1); }
-  // Called by every thread of a consumer warpgroup once its products on tile
-  // t have completed: the second warpgroup to finish refills the stage with
-  // tile t + 2. The count only grows, so its parity tells first from second.
-  __device__ __forceinline__ void release(int t, int wg) const {
-    named_bar_sync(5 + wg, 128);  // the whole warpgroup is done with the stage
-    if ((threadIdx.x & 127) == 0) {
-      const uint32_t before = atomicAdd(&released[t & 1], 1u);
-      if ((before & 1u) && t + 2 < n_tiles) load(t + 2);
-    }
-  }
-};
 
 // K3: one block per (128-query tile, h, b); consumer warpgroup c owns query
 // rows [64 c, 64 c + 64) of the tile.
@@ -602,8 +485,9 @@ struct HeadMaps {
 
 bool make_maps(HeadMaps* m, const void* q, const void* k, const void* v, const void* dout,
                int bsz, int n, int nh, int q_rows, int kv_rows) {
-  return head_map(&m->q, q, bsz, n, nh, q_rows) && head_map(&m->k, k, bsz, n, nh, kv_rows) &&
-         head_map(&m->v, v, bsz, n, nh, kv_rows) && head_map(&m->dout, dout, bsz, n, nh, q_rows);
+  const Strides st = blhd_strides(n, nh);
+  return head_map(&m->q, q, bsz, n, nh, st, q_rows) && head_map(&m->k, k, bsz, n, nh, st, kv_rows) &&
+         head_map(&m->v, v, bsz, n, nh, st, kv_rows) && head_map(&m->dout, dout, bsz, n, nh, st, q_rows);
 }
 
 template <bool kDropout>

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks for the attention backward kernels
-// (attention_bwd.cu): TMA tile loads completed on an mbarrier, named
+// Hopper (sm_90a) building blocks for the attention kernels (attention.cu,
+// attention_bwd.cu): TMA tile loads completed on an mbarrier, named
 // barriers, and the asynchronous warpgroup product wgmma.mma_async with its shared-memory
 // matrix descriptors. Plain PTX through inline asm, so the build needs only
 // the CUDA toolkit.
