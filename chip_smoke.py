@@ -8,7 +8,8 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
 
 1. build the hand-written kernels (``transfusion_torch/csrc/*.cu``) for
    sm_90a and print the build time and each kernel's registers and spill
-   bytes (a spill in a wgmma kernel, ``*_sm90``, fails the run);
+   bytes (a spill in a wgmma kernel, ``*_sm90``, or a RoIAlign kernel fails
+   the run);
 2. for each kernel entry -- eval: LayerNorm, residual LayerNorm, attention
    forward, RoIAlign forward; training: attention forward with dropout,
    attention backward dQ and dK/dV (at rates 0.15 and 0, and two launches
@@ -452,10 +453,25 @@ def _synthetic_rois(torch, g, bsz, n, hw):
     return clip_boxes(boxes, hw[0], hw[1])
 
 
+def _cover(torch, rows, cols, empty, h_tot, w_max):
+    """[B, H_tot, W_max] bool: the union of per-RoI rectangles of packed
+    cells, rows (first, last) and cols (first, last) inclusive, each
+    [B, R]; ``empty`` RoIs mark nothing. Rectangles are marked with a 2-D
+    difference array."""
+    bsz, n = empty.shape
+    diff = torch.zeros(bsz, h_tot + 1, w_max + 1, device="cuda")
+    bi = torch.arange(bsz, device="cuda")[:, None].expand(bsz, n)
+    one = torch.where(empty, 0.0, 1.0)
+    ya, yb = rows[0].long(), rows[1].long() + 1
+    xa, xb = cols[0].long(), cols[1].long() + 1
+    for yy, xx, s in ((ya, xa, 1.0), (ya, xb, -1.0), (yb, xa, -1.0), (yb, xb, 1.0)):
+        diff.index_put_((bi, yy, xx), one * s, accumulate=True)
+    return diff.cumsum(1).cumsum(2)[:, :h_tot, :w_max] > 0.5
+
+
 def _roi_touched_bytes(torch, params, shapes, h_tot, w_max, c, elt):
     """Bytes of pyramid cells inside the union of the RoIs' sample
-    footprints (each read once): rectangles marked with a 2-D difference
-    array."""
+    footprints (each read once)."""
     bsz, n = params["bh"].shape
     p = 7
     hl, wl, off = params["hl"], params["wl"], params["off"].long()
@@ -466,29 +482,39 @@ def _roi_touched_bytes(torch, params, shapes, h_tot, w_max, c, elt):
     y0 = torch.minimum(y0, hl - 1)
     x0 = torch.minimum(x0, wl - 1)
     empty = (params["ry"] == 0) | (params["rx"] == 0)
-    diff = torch.zeros(bsz, h_tot + 1, w_max + 1, device="cuda")
-    bi = torch.arange(bsz, device="cuda")[:, None].expand(bsz, n)
-    one = torch.where(empty, 0.0, 1.0)
-    ya, yb = (y0.long() + off), (y1.long() + off + 1)
-    xa, xb = x0.long(), x1.long() + 1
-    for yy, xx, s in ((ya, xa, 1.0), (ya, xb, -1.0), (yb, xa, -1.0), (yb, xb, 1.0)):
-        diff.index_put_((bi, yy, xx), one * s, accumulate=True)
-    cover = diff.cumsum(1).cumsum(2)[:, :h_tot, :w_max] > 0.5
+    cover = _cover(torch, (y0 + off, y1 + off), (x0, x1), empty, h_tot, w_max)
     return int(cover.sum()) * c * elt
 
 
-def phase_roi_align(torch):
+ROI_C = 256
+ROI_SIZES = [(H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16), (H // 32, W // 32)]
+
+
+def roi_inputs(torch, seed: int, n: int, fill: bool):
+    """The RoIAlign phases' inputs: the flagship's FPN levels x 256 channels
+    in bf16 (random if ``fill``, else uninitialised: the backward reads only
+    their shape), ``n`` synthetic RoIs an image, the packed pyramid and the
+    sampling parameters. Returns (generator, feats, rois, packed, shapes,
+    offsets, params); the generator goes on to draw what a phase needs next."""
     from transfusion_torch.ops import roi_align as ra
 
-    g = torch.Generator(device="cuda").manual_seed(3)
-    c, n = 256, 1000
-    sizes = [(H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16), (H // 32, W // 32)]
-    log(f"[roi_align_fwd] pyramid {sizes} x {c} bf16, rois [{B}, {n}, 4]")
-    feats = {str(i): torch.randn(B, h, w, c, device="cuda", generator=g).to(torch.bfloat16)
-             for i, (h, w) in enumerate(sizes)}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    feats = {str(i): (torch.randn(B, h, w, ROI_C, device="cuda", generator=g).to(torch.bfloat16) if fill
+                      else torch.empty(B, h, w, ROI_C, dtype=torch.bfloat16, device="cuda"))
+             for i, (h, w) in enumerate(ROI_SIZES)}
     rois = _synthetic_rois(torch, g, B, n, (H, W))
     packed, shapes, offsets = ra.pack_pyramid(feats)
     params = ra.roi_sample_params(rois, shapes, offsets, (H, W), 7, 0)
+    return g, feats, rois, packed, shapes, offsets, params
+
+
+def phase_roi_align(torch):
+    from transfusion_torch import kernels
+    from transfusion_torch.ops import roi_align as ra
+
+    c, n = ROI_C, 1000
+    log(f"[roi_align_fwd] pyramid {ROI_SIZES} x {c} bf16, rois [{B}, {n}, 4]")
+    g, feats, rois, packed, shapes, offsets, params = roi_inputs(torch, 3, n, True)
     got = ra.pooled_from_packed(packed, params)
     want = ra.roi_align_plain(packed, params)
     torch.cuda.synchronize()
@@ -499,33 +525,45 @@ def phase_roi_align(torch):
     pr = ra.roi_sample_params(rois[:2, :200], sh, of, (H, W), 7, 0)
     check("roi_align f32", max_err(ra.pooled_from_packed(pk, pr), ra.roi_align_plain(pk, pr)), 1e-5)
     ms = cuda_ms(lambda: ra.pooled_from_packed(packed, params), 20)
+    # The kernel alone, through its C entry (the wrapper's reading above adds
+    # its host time where the host sets the pace).
+    lib, stream, out = kernels.library(), kernels.stream_handle(packed.device), torch.empty_like(got)
+    ms_kernel = cuda_ms(lambda: lib.tf_roi_align_fwd(
+        packed.data_ptr(), params["fparams"].data_ptr(), params["iparams"].data_ptr(), out.data_ptr(), B, n,
+        packed.shape[1], packed.shape[2], c, 7, 1, stream), 20)
+    # pack_pyramid (a copy of the whole pyramid into one padded tensor) and
+    # its backward (slices of the packed gradient), which sit around K5 and K6.
+    leaves = {k: v.detach().requires_grad_() for k, v in feats.items()}
+    packed_g = ra.pack_pyramid(leaves)[0]
+    pack_ms = cuda_ms(lambda: ra.pack_pyramid(feats), 10)
+    pack_bwd_ms = cuda_ms(lambda: torch.autograd.grad(packed_g, list(leaves.values()), packed, retain_graph=True), 10)
+    log(f"  pack_pyramid {pack_ms:.4f} ms, its backward {pack_bwd_ms:.4f} ms")
+    del leaves, packed_g
     plain = cuda_ms(lambda: ra.roi_align_plain(packed, params), 1, warmup=1)
     samples = float((params["ry"] * params["rx"]).sum()) * 49
     touched = _roi_touched_bytes(torch, params, shapes, packed.shape[1], packed.shape[2], c, 2)
     bms, by = bound_ms(touched + got.numel() * 2 + rois.numel() * 4, samples * c * 8, F32_FLOPS)
-    log(f"  {samples:.0f} bilinear samples, {touched / 1e6:.1f} MB of pyramid touched")
+    log(f"  {samples:.0f} bilinear samples, {touched / 1e6:.1f} MB of pyramid touched; "
+        f"wrapper {ms:.4f} ms, kernel alone {ms_kernel:.4f} ms")
     return {"name": "roi_align_fwd", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by, "ms_kernel": ms_kernel,
+            "pack_ms": pack_ms, "pack_bwd_ms": pack_bwd_ms}
 
 
 def phase_roi_align_bwd(torch):
     """K6 at the train path's shapes: 128 sampled RoIs an image pooled from
-    the bf16 pyramid; the gradient lands in a zeroed f32 pyramid by atomics
-    and is cast once to bf16. Atomics add in a varying order: the result is
-    held at one bf16 ulp of max|plain|, and its mean error over the touched
-    cells at 2^-7 of their mean."""
+    the bf16 pyramid; the kernel writes the bf16 gradient once, every cell,
+    from f32 sums in another order than the plain version's: the result is
+    held at one bf16 ulp of max|plain|, its mean error over the touched
+    cells at 2^-7 of their mean, every cell outside the RoIs' footprints
+    (padding columns included) at exactly 0, and two launches bit for bit."""
+    from transfusion_torch import kernels
     from transfusion_torch.ops import roi_align as ra
 
-    g = torch.Generator(device="cuda").manual_seed(6)
-    c, n = 256, 128
-    sizes = [(H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16), (H // 32, W // 32)]
-    log(f"[roi_align_bwd] pyramid {sizes} x {c} bf16, rois [{B}, {n}, 4], grad [{B}, {n}, 7, 7, {c}]")
-    feats = {str(i): torch.empty(B, h, w, c, dtype=torch.bfloat16, device="cuda")
-             for i, (h, w) in enumerate(sizes)}
-    rois = _synthetic_rois(torch, g, B, n, (H, W))
-    packed, shapes, offsets = ra.pack_pyramid(feats)
+    c, n = ROI_C, 128
+    log(f"[roi_align_bwd] pyramid {ROI_SIZES} x {c} bf16, rois [{B}, {n}, 4], grad [{B}, {n}, 7, 7, {c}]")
+    g, feats, rois, packed, shapes, offsets, params = roi_inputs(torch, 6, n, False)
     shape = tuple(packed.shape)
-    params = ra.roi_sample_params(rois, shapes, offsets, (H, W), 7, 0)
     gout = torch.randn(B, n, 7, 7, c, device="cuda", generator=g).to(torch.bfloat16)
     got = ra.roi_align_bwd(gout, params, shape, torch.bfloat16)
     want = ra.roi_align_bwd_plain(gout, params, shape, torch.bfloat16)
@@ -540,24 +578,35 @@ def phase_roi_align_bwd(torch):
     check("roi_align backward bf16 (touched cells)", mean_rel, 2.0 ** -7,
           "mean|kernel - plain| / mean|plain|")
     del touched_cells
-    pf =ra.roi_sample_params(rois[:2, :50], shapes, offsets, (H, W), 7, 0)
+    foot = ra.roi_footprints(params)
+    outside = ~_cover(torch, (foot[..., 0], foot[..., 1]), (foot[..., 2], foot[..., 3]), foot[..., 0] > foot[..., 1],
+                      shape[1], shape[2])
+    check("roi_align backward bf16 outside every footprint", float((got.ne(0).any(-1) & outside).sum()), 0.0,
+          "non-zero cells")
+    check("roi_align backward bf16, two launches",
+          float((ra.roi_align_bwd(gout, params, shape, torch.bfloat16) != got).sum()), 0.0, "differing elements")
+    del outside
+    pf = ra.roi_sample_params(rois[:2, :50], shapes, offsets, (H, W), 7, 0)
     gf = torch.randn(2, 50, 7, 7, c, device="cuda", generator=g)
     shape_f = (2,) + shape[1:]
     want_f = ra.roi_align_bwd_plain(gf, pf, shape_f, torch.float32)
     check("roi_align backward f32", max_err(ra.roi_align_bwd(gf, pf, shape_f, torch.float32), want_f)
           / float(want_f.abs().max()), 1e-5, "max|kernel - plain| / max|plain|")
     ms = cuda_ms(lambda: ra.roi_align_bwd(gout, params, shape, torch.bfloat16), 10)
+    lib, stream = kernels.library(), kernels.stream_handle(gout.device)
+    ms_kernel = cuda_ms(lambda: lib.tf_roi_align_bwd(
+        gout.data_ptr(), params["fparams"].data_ptr(), params["iparams"].data_ptr(), got.data_ptr(), B, n,
+        shape[1], shape[2], c, 7, 1, stream), 10)
     plain = cuda_ms(lambda: ra.roi_align_bwd_plain(gout, params, shape, torch.bfloat16), 1, warmup=1)
     samples = float((params["ry"] * params["rx"]).sum()) * 49
     # The output is the whole bf16 pyramid, written once; g is read once.
     bms, by = bound_ms(packed.numel() * 2 + gout.numel() * 2 + rois.numel() * 4, samples * c * 8,
                        F32_FLOPS)
-    log(f"  {samples:.0f} bilinear samples; kernel time includes zeroing the f32 accumulator "
-        f"and the cast to bf16")
+    log(f"  {samples:.0f} bilinear samples; wrapper {ms:.4f} ms, kernel alone {ms_kernel:.4f} ms")
     del packed, feats, got, want
     torch.cuda.empty_cache()
     return {"name": "roi_align_bwd", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "library_ms": None, "bound_ms": bms, "bound_by": by}
+            "library_ms": None, "bound_ms": bms, "bound_by": by, "ms_kernel": ms_kernel}
 
 
 def _tiny_cfg(train: bool = False):
@@ -918,8 +967,9 @@ def main() -> int:
     for r in ptxas:
         log(f"  {r['source']}: {r['kernel']}: {r['registers']} registers, {r['spill_stores']} bytes spill "
             f"stores, {r['spill_loads']} bytes spill loads")
-    # The wgmma kernels are built to keep their accumulators in registers.
-    spilled = [r["kernel"] for r in ptxas if "sm90" in r["kernel"] and r["spill_stores"] + r["spill_loads"]]
+    # The wgmma and RoIAlign kernels are built to keep their accumulators in registers.
+    spilled = [r["kernel"] for r in ptxas if ("sm90" in r["kernel"] or "roi_align" in r["kernel"])
+               and r["spill_stores"] + r["spill_loads"]]
     if spilled:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
 
@@ -948,7 +998,7 @@ def main() -> int:
         # The record adds the share of the bound reached and, for the products, TFLOP/s.
         records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
                         **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
-                        **({"ms_bhnd": r["ms_bhnd"]} if "ms_bhnd" in r else {})})
+                        **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms") if k in r}})
         log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
             f"{r['plain_ms']:.4f} ms, library "
             f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "

@@ -7,7 +7,7 @@ each other on one CUDA card.
 Each DIR holds a copy of ``transfusion_torch/csrc/attention.cu`` and the
 headers it includes, edited to try one design change; ``transfusion_torch/csrc``
 itself may be given as the baseline. Every variant is built with the port's
-nvcc flags into ``DIR/lib.so`` (all builds started together; registers,
+nvcc flags into ``DIR/attention.so`` (all builds started together; registers,
 spills and wgmma serialisation warnings printed), checked against the plain
 version at the level-0 shape [8, 3136, 4, 224] bf16 with the card checks'
 tolerances (rates 0 and 0.15, and K7 in [B, H, N, D]), then timed through its
@@ -27,12 +27,18 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RATE, SEED = 0.15, 99
 
 
-def build(dirs: list[str]) -> dict:
+def build(dirs: list[str], source: str = "attention.cu",
+          entries: tuple = ("tf_attention_fwd", "tf_self_attention")) -> dict:
+    """Build ``DIR/source`` of every DIR with the port's nvcc flags into
+    ``DIR/<stem>.so`` (all builds started together), print ptxas's register
+    and spill lines and any wgmma serialisation warning, and bind the C
+    ``entries`` with the port's signatures. Returns {DIR: ctypes library}."""
     from transfusion_torch import kernels
 
     nvcc = kernels._nvcc()
-    procs = [(d, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", os.path.join(d, "lib.so"),
-                                   os.path.join(d, "attention.cu")],
+    stem = os.path.splitext(source)[0]
+    procs = [(d, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", os.path.join(d, f"{stem}.so"),
+                                   os.path.join(d, source)],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
              for d in dirs]
     libs = {}
@@ -42,10 +48,10 @@ def build(dirs: list[str]) -> dict:
             print(f"{d}: build failed\n{out[-4000:]}")
             continue
         for line in out.splitlines():
-            if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line) or "Used 2" in line:
-                print(f"{d}: {line.strip()[:160]}")
-        lib = ctypes.CDLL(os.path.abspath(os.path.join(d, "lib.so")))
-        for name in ("tf_attention_fwd", "tf_self_attention"):
+            if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line) or "Used" in line:
+                print(f"{d}/{source}: {line.strip()[:160]}")
+        lib = ctypes.CDLL(os.path.abspath(os.path.join(d, f"{stem}.so")))
+        for name in entries:
             getattr(lib, name).argtypes = kernels._SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         libs[d] = lib

@@ -17,8 +17,9 @@ difference under 2^-7 of mean|plain|). The attention backward rounds dS to
 bf16 from probabilities the kernel and the plain version compute with
 different exp routines, so a dS may land one ulp apart: its bf16 outputs
 are held at four ulps of max|plain| and the same mean bound (f32: 1e-4 of
-max|plain|). RoIAlign's backward sums with atomics in a varying order: f32
-1e-5 of max|plain|; bf16 one ulp of max|plain|. Dropout masks are equal bit
+max|plain|). RoIAlign's backward sums in another order than the plain
+version (f32 1e-5 of max|plain|; bf16 one ulp of max|plain|), writes exact
+zeros outside the RoIs' footprints and gives the same bits in two launches. Dropout masks are equal bit
 for bit, and the attention backward gives the same bits in two launches.
 """
 
@@ -316,50 +317,93 @@ _EDGE_ROIS = np.array([[90.0, 40.0, 370.0, 52.0], [40.0, 90.0, 52.0, 370.0],
                        [300.0, 300.0, 383.0, 383.0]], np.float32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["mixed", "clamped_multitile"])
-def test_roi_align_kernel_matches_plain(card, dtype, case):
-    """Partly-outside and zero-area RoIs, and RoIs hugging the packed
-    pyramid's edge (the regime of the JAX package's clamped multi-tile
-    regression test)."""
-    rng = np.random.default_rng(7)
-    sizes, hw, rois = (((64, 32, 16, 8), (256, 256), _ROIS) if case == "mixed"
-                       else ((96, 48, 24, 12), (384, 384), _EDGE_ROIS))
-    feats = {k: _on(rng.normal(0, 1, (2, s, s, 8)).astype(np.float32), card, dtype)
+# A RoI across several K6 output tiles (8 packed rows x 16 cells) in level 1,
+# whose last rows share a tile with level 2's first (levels of 60, 30, 15, 8
+# rows: tiles straddle both level boundaries), and a level-2 RoI there.
+_TILE_ROIS = np.array([[0.0, 150.0, 230.0, 240.0], [0.0, 0.0, 240.0, 240.0], [5.0, 5.0, 50.0, 50.0]],
+                      np.float32)
+# Level-3 RoIs with 8 or more samples a bin per axis (a 64-row level 3 at a
+# 512-pixel image).
+_DENSE_ROIS = np.array([[0.0, 0.0, 480.0, 470.0], [0.0, 0.0, 512.0, 512.0], [20.0, 7.5, 500.0, 505.0]],
+                       np.float32)
+# case: (level sizes, image size, RoIs of image 0 (image 1 takes them
+# reversed), batch, channels)
+_ROI_CASES = {
+    "mixed": ((64, 32, 16, 8), (256, 256), _ROIS, 2, 8),
+    "clamped_multitile": ((96, 48, 24, 12), (384, 384), _EDGE_ROIS, 2, 8),
+    "c64": ((64, 32, 16, 8), (256, 256), _ROIS, 2, 64),
+    "c256": ((64, 32, 16, 8), (256, 256), _ROIS, 2, 256),
+    "b1": ((64, 32, 16, 8), (256, 256), _ROIS, 1, 8),
+    "tiles_and_levels": ((60, 30, 15, 8), (240, 240), _TILE_ROIS, 2, 16),
+    "identical": ((64, 32, 16, 8), (256, 256), np.repeat(_ROIS[6:7], 64, axis=0), 2, 8),
+    "dense_samples": ((32, 32, 32, 64), (512, 512), _DENSE_ROIS, 2, 8),
+    "no_rois": ((64, 32, 16, 8), (256, 256), np.zeros((0, 4), np.float32), 2, 8),
+}
+
+
+def _roi_case(case, rng, dtype, card):
+    sizes, hw, rois, bsz, c = _ROI_CASES[case]
+    feats = {k: _on(rng.normal(0, 1, (bsz, s, s, c)).astype(np.float32), card, dtype)
              for k, s in zip("0123", sizes)}
-    boxes = _on(np.stack([rois, rois[::-1]]), card)
+    boxes = _on(np.stack([rois, rois[::-1]])[:bsz], card)
+    packed, shapes, offsets = ra.pack_pyramid(feats)
+    return feats, boxes, hw, packed, ra.roi_sample_params(boxes, shapes, offsets, hw, 7, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [k for k in _ROI_CASES if k != "no_rois"])
+def test_roi_align_kernel_matches_plain(card, dtype, case):
+    """Partly-outside and zero-area RoIs, RoIs hugging the packed pyramid's
+    edge (the regime of the JAX package's clamped multi-tile regression
+    test), 64 and 256 channels, one image, RoIs across tiles and level
+    boundaries, 64 identical RoIs, and 8 or more samples a bin."""
+    rng = np.random.default_rng(7)
+    feats, boxes, hw, packed, params = _roi_case(case, rng, dtype, card)
     before = kernels.LAUNCHES["roi_align_fwd"]
     got = ra.multiscale_roi_align(feats, boxes, hw)
-    packed, shapes, offsets = ra.pack_pyramid(feats)
-    want = ra.roi_align_plain(packed, ra.roi_sample_params(boxes, shapes, offsets, hw, 7, 0))
+    want = ra.roi_align_plain(packed, params)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["roi_align_fwd"] == before + 1
-    assert got.shape == (2, len(rois), 7, 7, 8) and got.dtype == dtype
+    assert got.shape == want.shape == (boxes.shape[0], boxes.shape[1], 7, 7, packed.shape[-1])
+    assert got.dtype == dtype
     assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
 
 
+def _footprint_cover(params, shape):
+    """[B, H_tot, W_max] bool: the cells inside some RoI's footprint."""
+    foot = ra.roi_footprints(params).cpu().numpy()
+    cover = np.zeros(shape[:3], bool)
+    for b, rects in enumerate(foot):
+        for y0, y1, x0, x1 in rects:
+            cover[b, y0:y1 + 1, x0:x1 + 1] = True
+    return torch.from_numpy(cover)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["mixed", "clamped_multitile"])
+@pytest.mark.parametrize("case", list(_ROI_CASES))
 def test_roi_align_backward_kernel_matches_plain(card, dtype, case):
-    """K6 against the plain scatter-add on the same RoIs as the forward test;
-    the result lands in the pyramid's dtype."""
+    """K6 against the plain scatter-add on the forward test's cases and with
+    no RoI at all; the result lands in the pyramid's dtype, every cell
+    outside the RoIs' footprints (padding columns included) exactly 0, and
+    two launches give the same bits."""
     rng = np.random.default_rng(8)
-    sizes, hw, rois = (((64, 32, 16, 8), (256, 256), _ROIS) if case == "mixed"
-                       else ((96, 48, 24, 12), (384, 384), _EDGE_ROIS))
-    feats = {k: _on(rng.normal(0, 1, (2, s, s, 8)).astype(np.float32), card, dtype)
-             for k, s in zip("0123", sizes)}
-    boxes = _on(np.stack([rois, rois[::-1]]), card)
-    packed, shapes, offsets = ra.pack_pyramid(feats)
-    params = ra.roi_sample_params(boxes, shapes, offsets, hw, 7, 0)
-    g = _on(rng.normal(0, 1, (2, len(rois), 7, 7, 8)).astype(np.float32), card, dtype)
+    _, boxes, _, packed, params = _roi_case(case, rng, dtype, card)
+    shape = tuple(packed.shape)
+    g = _on(rng.normal(0, 1, tuple(boxes.shape[:2]) + (7, 7, shape[-1])).astype(np.float32), card, dtype)
     before = kernels.LAUNCHES["roi_align_bwd"]
-    got = ra.roi_align_bwd(g, params, tuple(packed.shape), dtype)
-    want = ra.roi_align_bwd_plain(g, params, tuple(packed.shape), dtype)
+    got = ra.roi_align_bwd(g, params, shape, dtype)
+    want = ra.roi_align_bwd_plain(g, params, shape, dtype)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["roi_align_bwd"] == before + 1
     assert got.dtype == dtype and got.shape == packed.shape
     scale = float(want.float().abs().max())
-    assert _err(got, want) <= (1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale))
+    if case == "no_rois":
+        assert scale == 0.0 and not got.any()
+    else:
+        assert _err(got, want) <= (1e-5 * scale if dtype == torch.float32 else _bf16_ulp(scale))
+    outside = ~_footprint_cover(params, shape)
+    assert not got.cpu()[outside].any()
+    assert torch.equal(ra.roi_align_bwd(g, params, shape, dtype), got)
 
 
 def test_roi_align_autograd_round_trip(card):

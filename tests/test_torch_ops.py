@@ -219,7 +219,8 @@ def test_nms_matches_jax_slot_by_slot(rng, block):
 # ------------------------------------------------ (g) no JAX in the port
 def _port_files():
     pkg = os.path.join(REPO, "transfusion_torch")
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "ab_attention_fwd.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "ab_attention_fwd.py"),
+             os.path.join(REPO, "scripts", "ab_roi_align.py")]
     for root, dirs, names in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output, not package source
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]

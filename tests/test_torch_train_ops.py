@@ -126,6 +126,42 @@ def test_roi_align_backward_matches_jax(case):
                                        atol=1e-5, err_msg=k)
 
 
+# A RoI whose first samples lie in [-1, 0) on both axes (clamped to cell 0),
+# one whose first samples lie below -1 (they add nothing), and one at the
+# level's far edge, where the upper corner clamps onto the lower.
+_BELOW_ZERO_ROIS = np.array([[-2.5, -2.5, 10.0, 10.0], [-9.0, -7.0, 30.0, 12.0],
+                             [240.0, 200.0, 256.0, 256.0]], np.float32)
+
+
+@pytest.mark.parametrize("case", ["mixed", "clamped_multitile", "below_zero"])
+def test_roi_footprints_contain_every_backward_write(case):
+    """K6 sums each output tile over the RoIs whose footprint meets it, and
+    K5 reads each RoI's footprint window: every cell that the plain backward
+    makes non-zero from a positive g lies inside its RoI's footprint
+    (roi_footprints, which restates the kernels' csrc/roi_align.cuh::
+    footprint), and an empty footprint goes with no write at all."""
+    sizes, hw, rois = {"mixed": ((64, 32, 16, 8), (256, 256), _ROIS),
+                       "clamped_multitile": ((96, 48, 24, 12), (384, 384), _EDGE_ROIS),
+                       "below_zero": ((64, 32, 16, 8), (256, 256), _BELOW_ZERO_ROIS)}[case]
+    feats = {k: torch.zeros(2, s, s, 4) for k, s in zip("0123", sizes)}
+    packed, shapes, offsets = t_roi.pack_pyramid(feats)
+    params = t_roi.roi_sample_params(_t(np.stack([rois, rois[::-1]])), shapes, offsets, hw, 7, 0)
+    foot = t_roi.roi_footprints(params)
+    g = torch.from_numpy(np.random.default_rng(6).uniform(0.5, 1.5, (2, len(rois), 7, 7, 4)).astype(np.float32))
+    for r in range(len(rois)):
+        only = torch.zeros_like(g)
+        only[:, r] = g[:, r]
+        touched = t_roi.roi_align_bwd_plain(only, params, tuple(packed.shape), torch.float32).ne(0).any(-1)
+        for b in range(2):
+            y0, y1, x0, x1 = foot[b, r].tolist()
+            inside = torch.zeros_like(touched[b])
+            inside[y0:y1 + 1, x0:x1 + 1] = True
+            assert not (touched[b] & ~inside).any(), (case, b, r, foot[b, r])
+            assert (y0 <= y1) == bool(touched[b].any()), (case, b, r)
+    if case == "below_zero":  # samples in [-1, 0) read cell 0 of the RoI's level
+        assert foot[0, 0, 2] == 0 and foot[0, 0, 0] == offsets[int(params["lvl"][0, 0])]
+
+
 # ------------------------------------------------- (c) matcher, samplers
 def test_match_proposals_matches_jax():
     """Quantised IoUs force ties (first GT wins); an invalid GT; both

@@ -16,123 +16,137 @@
 // read inside the RoI's own level, so the packed pyramid's padding columns
 // are never addressed.
 //
-// Bound on the H100: memory bytes (four channel-vector reads per sample and
-// a 7x7xC write per RoI against eight flops per read element). The bytes
-// that must cross HBM are the pyramid cells the RoIs touch and the output;
-// the four corner reads of every sample come mostly from L1/L2, and the
-// per-sample coordinate arithmetic costs issue slots.
+// Bound on the H100: memory bytes (the pyramid cells the RoIs touch, read
+// once, and the 7x7xC output, written once); the arithmetic is a few flops
+// per byte.
 //
-// Design: one block per (b, RoI), one warp per bin row, lanes across
-// channels with 16 bytes a lane (8 bf16 or 4 f32 channels), so each
-// bilinear read of a [C] channel vector is one coalesced 512-byte row of the
-// channels-last pyramid (C = 256 in bf16) and the coordinate arithmetic of a
-// sample is shared by 8 channels. The TPU kernel's separable weight
-// matrices and window DMA served VMEM and the MXU; here the neighbouring
-// pyramid cells of a RoI come through L1/L2, and the sample loop bounds are
-// uniform across the warp.
+// Design: one block per (b, RoI). The block first computes the RoI's
+// separable weights (roi_align.cuh) over its footprint window into shared
+// memory: Ay[p][y] for every window row (count_inv folded in) and Ax[q][x]
+// for every window column. Thread (q, lane) then owns output column q for
+// 16 bytes of channels (8 bf16 or 4 f32), lanes across channels so that
+// each read of a cell's channel vector is coalesced. For each bin row p in
+// turn it walks the window rows that p reaches: the x-pass
+// T = sum_x Ax[q][x] F[y][x] over the columns bin q reaches, then
+// acc += Ay[p][y] T, and stores bin (p, q) once. Each window cell is read
+// once per bin that reaches it (neighbouring bins share at most their
+// boundary rows and columns), against four reads a sample before, and
+// sample coordinates are computed once a RoI, in the tables, not once a
+// sample, channel pass and warp. The TPU kernel's dense window product
+// (roi_align_pallas.py:199-218) would round the bilinear weights to the
+// product's input type; here every weight stays f32.
+//
+// What the card showed (ab_roi_align.py at the eval shape on an H100): the
+// kernel waits on L2 round trips, so the loads of two window rows are
+// issued together (one row at a time: 0.80 against 0.47 ms), and bin-row
+// order keeps a single bin's sums in registers (80 registers instead of
+// 128 for all 7 bin rows at once, and no y-pass over bin rows that do not
+// reach the row: 0.42 ms), at the price of reading a row two bins share
+// twice.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "roi_align.cuh"
 
 namespace {
 
-// 16 bytes of T, widened to floats.
-template <typename T>
-struct Vec16;
+using roi::Vec16;
 
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&f)[kN]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
-    }
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&f)[kN]) {
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
-  }
-};
+constexpr int kRowBlock = 2;  // window rows whose loads are issued together
 
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&f)[kN]) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float (&f)[kN]) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-};
-
-// Block (32, pooled): threadIdx.y is the bin row, threadIdx.x the lane.
-template <typename T>
-__global__ void roi_align_fwd(const T* __restrict__ packed, const float* __restrict__ fparams,
-                              const int* __restrict__ iparams, T* __restrict__ out,
-                              int n_rois, int h_tot, int w_max, int c, int pooled) {
+// Window rows y .. y + NR - 1 of bin row p into acc: the x-pass over the
+// columns of bin q, then each row's weight for p.
+template <typename T, int NR>
+__device__ __forceinline__ void window_rows(const T* row, size_t row_stride, int c, int xlo, int xhi,
+                                            const float* axq, const float* ayp,
+                                            float (&acc)[Vec16<T>::kN]) {
   using V = Vec16<T>;
   constexpr int kN = V::kN;
+  float t[NR][kN];
+#pragma unroll
+  for (int k = 0; k < NR; ++k)
+#pragma unroll
+    for (int e = 0; e < kN; ++e) t[k][e] = 0.f;
+#pragma unroll 2
+  for (int x = xlo; x <= xhi; ++x) {
+    float f[NR][kN];
+#pragma unroll
+    for (int k = 0; k < NR; ++k) V::load(row + k * row_stride + (size_t)x * c, f[k]);
+    const float w = axq[x];
+#pragma unroll
+    for (int k = 0; k < NR; ++k)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) t[k][e] += w * f[k][e];
+  }
+#pragma unroll
+  for (int k = 0; k < NR; ++k)
+#pragma unroll
+    for (int e = 0; e < kN; ++e) acc[e] += ayp[k] * t[k][e];
+}
+
+// Block (lanes * pooled) threads: thread t is bin column q = t / lanes,
+// channel lane t % lanes. Dynamic shared memory: pooled * (h_tot + w_max)
+// floats, enough for any footprint window.
+template <typename T>
+__global__ void __launch_bounds__(256) roi_align_fwd(
+    const T* __restrict__ packed, const float* __restrict__ fparams, const int* __restrict__ iparams,
+    T* __restrict__ out, int n_rois, int h_tot, int w_max, int c, int pooled, int lanes) {
+  using V = Vec16<T>;
+  constexpr int kN = V::kN;
+  extern __shared__ float smem[];
   const int r = blockIdx.x, b = blockIdx.y;
-  const int ph = threadIdx.y, lane = threadIdx.x;
   const float* fp = fparams + ((size_t)b * n_rois + r) * 8;
   const int* ip = iparams + ((size_t)b * n_rois + r) * 4;
   const float y1 = fp[0], x1 = fp[1], bh = fp[2], bw = fp[3];
   const float hl = fp[4], wl = fp[5], count_inv = fp[6];
   const int ry = ip[0], rx = ip[1], off = ip[2];
-  const float ryf = fmaxf((float)ry, 1.f), rxf = fmaxf((float)rx, 1.f);
-  const int hl_i = (int)hl, wl_i = (int)wl;
-  const T* level = packed + ((size_t)b * h_tot + off) * w_max * c;
-  T* dst = out + (((size_t)b * n_rois + r) * pooled + ph) * pooled * c;
+  const int4 foot = roi::footprint(fp, ip, pooled);
+  const int ya = foot.x - off, xa = foot.z;
+  const int hw = max(foot.y - foot.x + 1, 0), ww = max(foot.w - foot.z + 1, 0);
+  float* ay = smem;                     // [pooled][hw]
+  float* ax = smem + pooled * hw;       // [pooled][ww]
 
-  for (int c0 = lane * kN; c0 < c; c0 += 32 * kN) {
-    for (int pw = 0; pw < pooled; ++pw) {
+  for (int e = threadIdx.x; e < pooled * (hw + ww); e += blockDim.x) {
+    if (e < pooled * hw) {
+      ay[e] = roi::axis_weight(y1, bh, ry, hl, e / hw, ya + e % hw) * count_inv;
+    } else {
+      const int ex = e - pooled * hw;
+      ax[ex] = roi::axis_weight(x1, bw, rx, wl, ex / ww, xa + ex % ww);
+    }
+  }
+  __syncthreads();
+
+  const int q = threadIdx.x / lanes, lane = threadIdx.x % lanes;
+  if (q >= pooled) return;
+  int xlo = 0, xhi = -1;
+  if (ww > 0) {
+    roi::span(x1, bw, rx, wl, q, q, xlo, xhi);
+    xlo = max(xlo, xa);
+    xhi = min(xhi, xa + ww - 1);
+  }
+  const float* axq = ax + q * ww - xa;
+  const size_t row_stride = (size_t)w_max * c;
+  const T* level = packed + ((size_t)b * h_tot + off) * row_stride;
+  T* dst = out + (((size_t)b * n_rois + r) * pooled * pooled + q) * c;
+
+  for (int c0 = lane * kN; c0 < c; c0 += lanes * kN) {
+    for (int p = 0; p < pooled; ++p) {
       float acc[kN];
 #pragma unroll
       for (int e = 0; e < kN; ++e) acc[e] = 0.f;
-      for (int iy = 0; iy < ry; ++iy) {
-        // Rounded as the plain version rounds it (no fused multiply-add),
-        // so both place every sample at the same f32 coordinate.
-        const float y = __fadd_rn(y1, __fmul_rn(bh, (float)ph + ((float)iy + 0.5f) / ryf));
-        if (y < -1.f || y > hl) continue;
-        const float yc = fminf(fmaxf(y, 0.f), hl - 1.f);
-        const int y0 = (int)floorf(yc);
-        const int y1i = min(y0 + 1, hl_i - 1);
-        const float ly = yc - (float)y0, hy = 1.f - ly;
-        for (int ix = 0; ix < rx; ++ix) {
-          const float x = __fadd_rn(x1, __fmul_rn(bw, (float)pw + ((float)ix + 0.5f) / rxf));
-          if (x < -1.f || x > wl) continue;
-          const float xc = fminf(fmaxf(x, 0.f), wl - 1.f);
-          const int x0 = (int)floorf(xc);
-          const int x1i = min(x0 + 1, wl_i - 1);
-          const float lx = xc - (float)x0, hx = 1.f - lx;
-          float f00[kN], f01[kN], f10[kN], f11[kN];
-          V::load(level + ((size_t)y0 * w_max + x0) * c + c0, f00);
-          V::load(level + ((size_t)y0 * w_max + x1i) * c + c0, f01);
-          V::load(level + ((size_t)y1i * w_max + x0) * c + c0, f10);
-          V::load(level + ((size_t)y1i * w_max + x1i) * c + c0, f11);
-          const float w00 = hy * hx, w01 = hy * lx, w10 = ly * hx, w11 = ly * lx;
-#pragma unroll
-          for (int e = 0; e < kN; ++e)
-            acc[e] += w00 * f00[e] + w01 * f01[e] + w10 * f10[e] + w11 * f11[e];
-        }
+      if (hw > 0) {
+        // The window rows bin row p reaches; a row shared by two bin rows
+        // is read for each.
+        int ylo, yhi;
+        roi::span(y1, bh, ry, hl, p, p, ylo, yhi);
+        const float* ayp = ay + p * hw - ya;
+        int y = max(ylo, ya);
+        yhi = min(yhi, ya + hw - 1);
+        for (; y + kRowBlock - 1 <= yhi; y += kRowBlock)
+          window_rows<T, kRowBlock>(level + y * row_stride + c0, row_stride, c, xlo, xhi, axq,
+                                    ayp + y, acc);
+        for (; y <= yhi; ++y)
+          window_rows<T, 1>(level + y * row_stride + c0, row_stride, c, xlo, xhi, axq, ayp + y, acc);
       }
-#pragma unroll
-      for (int e = 0; e < kN; ++e) acc[e] *= count_inv;
-      V::store(dst + (size_t)pw * c + c0, acc);
+      V::store(dst + (size_t)p * pooled * c + c0, acc);
     }
   }
 }
@@ -140,15 +154,26 @@ __global__ void roi_align_fwd(const T* __restrict__ packed, const float* __restr
 template <typename T>
 int launch(const void* packed, const void* fparams, const void* iparams, void* out, int bsz,
            int n_rois, int h_tot, int w_max, int c, int pooled, cudaStream_t s) {
-  if (c % Vec16<T>::kN != 0) return (int)cudaErrorInvalidValue;
-  roi_align_fwd<T><<<dim3(n_rois, bsz), dim3(32, pooled), 0, s>>>(
-      (const T*)packed, (const float*)fparams, (const int*)iparams, (T*)out, n_rois, h_tot,
-      w_max, c, pooled);
+  constexpr int kN = Vec16<T>::kN;
+  if (c % kN != 0) return (int)cudaErrorInvalidValue;
+  const int lanes = min(min(c / kN, 32), 256 / pooled);
+  const size_t smem = (size_t)pooled * (h_tot + w_max) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        roi_align_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  roi_align_fwd<T><<<dim3(n_rois, bsz), lanes * pooled, smem, s>>>(
+      (const T*)packed, (const float*)fparams, (const int*)iparams, (T*)out, n_rois, h_tot, w_max,
+      c, pooled, lanes);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// packed [B, H_tot, W_max, C]; fparams [B, R, 8] f32 and iparams [B, R, 4]
+// int32 as ops/roi_align.py::roi_sample_params stacks them; out
+// [B, R, P, P, C] in the pyramid's dtype.
 extern "C" int tf_roi_align_fwd(const void* packed, const void* fparams, const void* iparams,
                                 void* out, int bsz, int n_rois, int h_tot, int w_max, int c,
                                 int pooled, int is_bf16, void* stream) {

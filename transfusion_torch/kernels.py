@@ -61,8 +61,9 @@ _SIGNATURES = {
     # packed pyramid, per-RoI floats [B, R, 8], per-RoI ints [B, R, 4], out,
     # B, R, H_tot, W_max, C, P, is_bf16, stream
     "tf_roi_align_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # grad_out [B, R, P, P, C], per-RoI floats, per-RoI ints, f32 grad
-    # accumulator [B, H_tot, W_max, C], B, R, H_tot, W_max, C, P, is_bf16, stream
+    # grad_out [B, R, P, P, C], per-RoI floats, per-RoI ints, grad
+    # [B, H_tot, W_max, C] in the pyramid's dtype (every cell written),
+    # B, R (0 allowed), H_tot, W_max, C, P, is_bf16, stream
     "tf_roi_align_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

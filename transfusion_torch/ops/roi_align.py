@@ -54,7 +54,9 @@ def roi_sample_params(rois, shapes, offsets, image_hw, output_size: int, samplin
     """Per-RoI level assignment and adaptive sampling parameters, each [B, R]:
     level-relative start (y1, x1), bin sizes (bh, bw), sample counts (ry, rx,
     0 allowed), 1 / max(ry * rx, 1), level extent (hl, wl) and packed row
-    offset (off)."""
+    offset (off); and, as the kernels read them, "fparams" [B, R, 8] f32
+    (y1, x1, bh, bw, hl, wl, count_inv, 0) and "iparams" [B, R, 4] int32
+    (ry, rx, off, 0), stacked here once for a forward and its backward."""
     bsz, n = rois.shape[:2]
     dev = rois.device
     heights = torch.tensor([h for h, _ in shapes], dtype=torch.float32, device=dev)
@@ -75,9 +77,13 @@ def roi_sample_params(rois, shapes, offsets, image_hw, output_size: int, samplin
         ry = torch.ceil(bh).to(torch.int32)
         rx = torch.ceil(bw).to(torch.int32)
     count_inv = 1.0 / torch.clamp(ry * rx, min=1).to(torch.float32)
+    hl, wl, off = heights[lvl], widths[lvl], offs[lvl]
     return {
         "lvl": lvl, "y1": y1, "x1": x1, "bh": bh, "bw": bw, "ry": ry, "rx": rx,
-        "count_inv": count_inv, "hl": heights[lvl], "wl": widths[lvl], "off": offs[lvl],
+        "count_inv": count_inv, "hl": hl, "wl": wl, "off": off,
+        # The same, stacked once as the kernels read them.
+        "fparams": torch.stack([y1, x1, bh, bw, hl, wl, count_inv, torch.zeros_like(y1)], dim=-1),
+        "iparams": torch.stack([ry, rx, off, torch.zeros_like(ry)], dim=-1),
     }
 
 
@@ -161,15 +167,45 @@ def roi_align_bwd_plain(grad_out, params, packed_shape, dtype, output_size: int 
     return acc.reshape(packed_shape).to(dtype)
 
 
-def _device_params(params, device):
-    """Per-RoI floats [B, R, 8] and ints [B, R, 4], as the kernels read them."""
-    fparams = torch.stack(
-        [params["y1"], params["x1"], params["bh"], params["bw"], params["hl"], params["wl"],
-         params["count_inv"], torch.zeros_like(params["y1"])], dim=-1,
-    ).to(device=device, dtype=torch.float32).contiguous()
-    iparams = torch.stack(
-        [params["ry"], params["rx"], params["off"], torch.zeros_like(params["ry"])], dim=-1,
-    ).to(device=device, dtype=torch.int32).contiguous()
+def _axis_span(start, size, count, extent, output_size: int):
+    """Cells [lo, hi] along one axis that a RoI's samples can reach: the
+    clamped first and last sample, placed as the forward places them, and
+    the `+ 1` corner of the last, clamped into [0, extent - 1]. The sample
+    coordinate is monotone along the axis, so the ends bound every sample."""
+    countf = torch.clamp(count.float(), min=1.0)
+    ends = []
+    # Tensor over tensor: a true division, as in _bilinear_corners.
+    for bin_, half in ((0.0, torch.full_like(countf, 0.5)), (float(output_size - 1), countf - 0.5)):
+        pos = start + size * (bin_ + half / countf)
+        ends.append(torch.floor(torch.minimum(torch.clamp(pos, min=0.0), extent - 1)))
+    lo = torch.minimum(ends[0], ends[1])
+    hi = torch.minimum(torch.maximum(ends[0], ends[1]) + 1, extent - 1)
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def roi_footprints(params, output_size: int = 7):
+    """Per-RoI rectangle of packed pyramid cells the RoI's bilinear samples
+    can read (forward) or write (backward), [B, R, 4] int32: first row,
+    last row (packed rows, the level's offset added), first column, last
+    column, all inclusive. A RoI with no samples (ry or rx 0) gets the empty
+    rectangle rows [0, -1], columns [0, -1]. K5 and K6 compute the same
+    rectangle on the card (``csrc/roi_align.cuh::footprint``): K5 reads its
+    window, K6 tests it against each output tile."""
+    ylo, yhi = _axis_span(params["y1"], params["bh"], params["ry"], params["hl"], output_size)
+    xlo, xhi = _axis_span(params["x1"], params["bw"], params["rx"], params["wl"], output_size)
+    off = params["off"].to(torch.int32)
+    empty = (params["ry"] <= 0) | (params["rx"] <= 0)
+    foot = torch.stack([ylo + off, yhi + off, xlo, xhi], dim=-1)
+    return torch.where(empty[..., None], torch.tensor([0, -1, 0, -1], dtype=torch.int32,
+                                                      device=foot.device), foot)
+
+
+def _kernel_params(params, device):
+    fparams, iparams = params["fparams"], params["iparams"]
+    kernels.require(fparams.device == device and iparams.device == device
+                    and fparams.dtype == torch.float32 and iparams.dtype == torch.int32
+                    and fparams.is_contiguous() and iparams.is_contiguous(),
+                    "roi_align: fparams / iparams as roi_sample_params stacks them, on the pyramid's device")
     return fparams, iparams
 
 
@@ -185,7 +221,7 @@ def _roi_align_cuda(packed, params, output_size: int):
     n = params["bh"].shape[1]
     _check_pyramid("roi_align", packed)
     kernels.require(output_size <= 32, "roi_align: output size must be <= 32")
-    fparams, iparams = _device_params(params, packed.device)
+    fparams, iparams = _kernel_params(params, packed.device)
     out = torch.empty((bsz, n, output_size, output_size, c), dtype=packed.dtype, device=packed.device)
     if n == 0:
         return out
@@ -203,20 +239,21 @@ def _roi_align_bwd_cuda(grad_out, params, packed_shape, dtype, output_size: int)
     bsz, h_tot, w_max, c = packed_shape
     n = params["bh"].shape[1]
     _check_pyramid("roi_align backward", grad_out)
+    kernels.require(output_size <= 8, "roi_align backward: output size must be <= 8")
     kernels.require(grad_out.dtype == dtype and grad_out.shape == (bsz, n, output_size, output_size, c),
                     "roi_align backward: grad_out must be [B, R, P, P, C] in the pyramid's dtype")
-    acc = torch.zeros(packed_shape, dtype=torch.float32, device=grad_out.device)
-    if n == 0:
-        return acc.to(dtype)
-    fparams, iparams = _device_params(params, grad_out.device)
+    # K6 writes every cell of the gradient, zeros included: no zeroed
+    # accumulator, no cast. With no RoI it still runs, writing zeros.
+    grad = torch.empty(packed_shape, dtype=dtype, device=grad_out.device)
+    fparams, iparams = _kernel_params(params, grad_out.device)
     code = kernels.library().tf_roi_align_bwd(
-        grad_out.data_ptr(), fparams.data_ptr(), iparams.data_ptr(), acc.data_ptr(),
+        grad_out.data_ptr(), fparams.data_ptr(), iparams.data_ptr(), grad.data_ptr(),
         bsz, n, h_tot, w_max, c, output_size, int(dtype == torch.bfloat16),
         kernels.stream_handle(grad_out.device),
     )
     kernels.check(code, "tf_roi_align_bwd")
     kernels.LAUNCHES["roi_align_bwd"] += 1
-    return acc.to(dtype)
+    return grad
 
 
 def roi_align_bwd(grad_out, params, packed_shape, dtype, output_size: int = 7):
