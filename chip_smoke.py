@@ -8,9 +8,11 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
 
 1. build the hand-written kernels (``transfusion_torch/csrc/*.cu``) for
    sm_90a and print the build time and each kernel's registers and spill
-   bytes (a spill in a wgmma kernel, ``*_sm90``, or a RoIAlign kernel fails
-   the run);
-2. for each kernel entry -- eval: LayerNorm, residual LayerNorm, attention
+   bytes (a spill in a wgmma kernel, ``*_sm90``, a RoIAlign or a LayerNorm
+   kernel fails the run);
+2. for each kernel entry -- eval: LayerNorm and residual LayerNorm (at every
+   shape of the eval request, LN_SHAPES, the final norm also read in place
+   through its view x[:, :n]; timed by CUDA-graph replay), attention
    forward, RoIAlign forward; training: attention forward with dropout,
    attention backward dQ and dK/dV (at rates 0.15 and 0, and two launches
    bit for bit), RoIAlign backward; off both paths: exact self-attention
@@ -28,7 +30,8 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
 4. the eval slice: the flagship eval forward + ``detections_from_outputs``
    at B 8, 768x1024, 64 language tokens, seeded random weights, for a few
    requests; frames/s, mean kept detections, and the kernel launch counts
-   of that run, which must be LN 36 / attention 4 / RoIAlign 1 a forward;
+   of that run, which must be LN 5 / residual LN 56 (the fusion's 4 + 32 and
+   MiniLM-L12's 1 + 24) / attention 4 / RoIAlign 1 a forward;
 5. the train slice: the flagship train step (RAdam lr 1e-4, wd 1e-5,
    bbox/obj_prop/noun/verb criterion, the trainer's epoch-0 freeze
    multipliers) on the same input with one GT box an image, one warm-up
@@ -65,7 +68,7 @@ TRAIN_STEPS = 4
 HBM_BPS = 3.35e12          # H100 SXM HBM3
 BF16_TC_FLOPS = 989e12     # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
-EXPECTED_PER_FORWARD = {"layer_norm": 4, "residual_layer_norm": 32, "attention_fwd": 4,
+EXPECTED_PER_FORWARD = {"layer_norm": 5, "residual_layer_norm": 56, "attention_fwd": 4,
                         "roi_align_fwd": 1}
 EXPECTED_PER_STEP = {"attention_fwd_dropout": 4, "attention_bwd_dq": 4, "attention_bwd_dkv": 4,
                      "roi_align_fwd": 1, "roi_align_bwd": 1, "layer_norm": 0,
@@ -167,35 +170,142 @@ def check(name: str, err: float, tol: float, measure: str = "max|kernel - plain|
 
 
 # ------------------------------------------------------------------ phases
-def phase_layer_norm(torch, residual: bool):
+# K1 at every distinct shape of the eval request: the fusion's norm1/norm2
+# (residual) and final norm at level 0 (3072 visual + 64 language tokens) and
+# at levels 1-3 (768 + 64), the final norm also as the view x[:, :n] of the
+# [B, N, 896] sequence it reads in the model, and MiniLM-L12's norms at
+# [B x 64, 384] at MiniLM's eps 1e-12: the residual post-norms in bf16 and
+# the embeddings norm in f32 (both variants in both types here); and f32 at
+# 896 in both forms, which no request runs. "view": the batch's sequence
+# length N when x is x[:, :n] of a contiguous [B, N, d]. Requests launch each
+# shape "per_request" times; "eps" is 1e-6 where not given.
+LN_SHAPES = [
+    {"label": "fusion L0 norm1/norm2", "n": 3136, "d": 896, "dtype": "bf16", "residual": True, "per_request": 8},
+    {"label": "fusion L0 final norm", "n": 3072, "d": 896, "dtype": "bf16", "residual": False, "per_request": 0},
+    {"label": "fusion L0 final norm, view", "n": 3072, "view": 3136, "d": 896, "dtype": "bf16", "residual": False,
+     "per_request": 1},
+    {"label": "fusion L1-3 norm1/norm2", "n": 832, "d": 896, "dtype": "bf16", "residual": True, "per_request": 24},
+    {"label": "fusion L1-3 final norm", "n": 768, "d": 896, "dtype": "bf16", "residual": False, "per_request": 0},
+    {"label": "fusion L1-3 final norm, view", "n": 768, "view": 832, "d": 896, "dtype": "bf16", "residual": False,
+     "per_request": 3},
+    {"label": "MiniLM post-norms", "n": LANG_LEN, "d": 384, "dtype": "bf16", "residual": True, "per_request": 24,
+     "eps": 1e-12},
+    {"label": "MiniLM post-norms f32", "n": LANG_LEN, "d": 384, "dtype": "f32", "residual": True, "per_request": 0,
+     "eps": 1e-12},
+    {"label": "MiniLM plain bf16", "n": LANG_LEN, "d": 384, "dtype": "bf16", "residual": False, "per_request": 0,
+     "eps": 1e-12},
+    {"label": "MiniLM embeddings norm", "n": LANG_LEN, "d": 384, "dtype": "f32", "residual": False, "per_request": 1,
+     "eps": 1e-12},
+    {"label": "f32 residual 1,000 x 896", "n": 125, "d": 896, "dtype": "f32", "residual": True, "per_request": 0},
+    {"label": "f32 plain 24,576 x 896", "n": 3072, "d": 896, "dtype": "f32", "residual": False, "per_request": 0},
+]
+L2_BYTES = 50e6  # the H100's L2
+
+
+def ln_inputs(torch, shape: dict, g, copies: int = 1):
+    """``copies`` sets of K1 inputs (x, residual or None) at ``shape``, and
+    w, b: x [B, n, d] (mean 1, sd 3), a view x[:, :n] of [B, N, d] where
+    the shape says so; the residual N(0, 1)."""
+    dt = torch.bfloat16 if shape["dtype"] == "bf16" else torch.float32
+    n, d = shape["n"], shape["d"]
+    sets = []
+    for _ in range(copies):
+        x = torch.randn(B, shape.get("view", n), d, device="cuda", generator=g).mul_(3).add_(1).to(dt)[:, :n]
+        r = torch.randn(B, n, d, device="cuda", generator=g).to(dt) if shape["residual"] else None
+        sets.append((x, r))
+    w = torch.randn(d, device="cuda", generator=g).mul_(0.2).add_(1)
+    b = torch.randn(d, device="cuda", generator=g).mul_(0.2)
+    return sets, w, b
+
+
+def ln_bytes(shape: dict) -> int:
+    """Bytes K1 must move at ``shape``: x (and r) read once, y written once,
+    w and b read once."""
+    elt = 2 if shape["dtype"] == "bf16" else 4
+    return B * shape["n"] * shape["d"] * elt * (3 if shape["residual"] else 2) + 2 * shape["d"] * 4
+
+
+def ln_copies(shape: dict) -> int:
+    """Input sets to cycle through so that a timed run reads past the L2."""
+    return max(1, min(8, math.ceil(2 * L2_BYTES / ln_bytes(shape))))
+
+
+def graph_ms(torch, fns, launches: int = 40, reps: int = 5) -> float:
+    """Device ms a call: ``launches`` calls (cycling through ``fns``) captured
+    in a CUDA graph, the graph replayed ``reps`` times between CUDA events, so
+    the host's launch cost stays out of the reading. What each captured call
+    returns is held until the capture ends, so a call that allocates its
+    output writes a buffer of its own in every launch rather than one block
+    the graph's pool hands to all of them (which could stay in the L2)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()  # outside the capture: first-launch set-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    held = []
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            held.append(fns[i % len(fns)]())
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * launches)
+    del graph, held
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_layer_norm(torch):
+    """K1 at every shape of LN_SHAPES against its plain version (bf16 one ulp
+    for |y| < 8, 3.2e-2; f32 1e-4), timed on the card (CUDA-graph replays,
+    inputs cycled past the L2) beside its bound, the plain version and, for
+    the plain variant, F.layer_norm. The kernel rows of the JSON line are the
+    level-0 shapes (the final norm through its view, as the model runs it)."""
     from transfusion_torch.ops import layer_norm as ln
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    d = 896
-    # Level 0 of the flagship fusion: norm1/norm2 see B*3136 rows, final_norm B*3072.
-    rows = B * (3136 if residual else 3072)
-    x = torch.randn(rows, d, device="cuda", generator=g).mul_(3).add_(1).to(torch.bfloat16)
-    r = torch.randn(rows, d, device="cuda", generator=g).to(torch.bfloat16) if residual else None
-    w = torch.randn(d, device="cuda", generator=g).mul_(0.2).add_(1)
-    b = torch.randn(d, device="cuda", generator=g).mul_(0.2)
-    name = "residual_layer_norm" if residual else "layer_norm"
-    log(f"[{name}] rows {rows} x {d} bf16")
-    got = ln.fused_layer_norm(x, w, b, residual=r)
-    want = ln.layer_norm_plain(x, w, b, residual=r)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    check(f"{name} bf16", err, 3.2e-2)  # one bf16 ulp for |y| < 8
-    xf = torch.randn(999, d, device="cuda", generator=g) * 3
-    rf = torch.randn(999, d, device="cuda", generator=g) if residual else None
-    check(f"{name} f32", max_err(ln.fused_layer_norm(xf, w, b, residual=rf),
-                                 ln.layer_norm_plain(xf, w, b, residual=rf)), 1e-4)
-    ms = cuda_ms(lambda: ln.fused_layer_norm(x, w, b, residual=r), 50)
-    plain = cuda_ms(lambda: ln.layer_norm_plain(x, w, b, residual=r), 10)
-    lib = None if residual else cuda_ms(lambda: torch.nn.functional.layer_norm(x, (d,), w.to(x.dtype), b.to(x.dtype), 1e-6), 50)
-    nbytes = rows * d * 2 * (3 if residual else 2) + 2 * d * 4
-    bms, by = bound_ms(nbytes, rows * d * (9 if residual else 8), F32_FLOPS)
-    return {"name": name, "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bms, "bound_by": by}
+    shapes, errs = [], {"layer_norm": 0.0, "residual_layer_norm": 0.0}
+    for shape in LN_SHAPES:
+        name = "residual_layer_norm" if shape["residual"] else "layer_norm"
+        sets, w, b = ln_inputs(torch, shape, g, ln_copies(shape))
+        x, r = sets[0]
+        eps = shape.get("eps", 1e-6)
+        got = ln.fused_layer_norm(x, w, b, eps, residual=r)
+        want = ln.layer_norm_plain(x.contiguous(), w, b, eps, residual=r)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        errs[name] = max(errs[name], err)
+        check(f"{name} {shape['label']} [{B * shape['n']}, {shape['d']}] {shape['dtype']}", err,
+              3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+        ms = graph_ms(torch, [lambda x=x, r=r: ln.fused_layer_norm(x, w, b, eps, residual=r) for x, r in sets])
+        plain = cuda_ms(lambda: ln.layer_norm_plain(x, w, b, eps, residual=r), 5)
+        lib = None
+        if not shape["residual"]:
+            wl, bl = w.to(x.dtype), b.to(x.dtype)
+            lib = graph_ms(torch, [lambda x=x: torch.nn.functional.layer_norm(x, (shape["d"],), wl, bl, eps)
+                                   for x, _ in sets])
+        nbytes = ln_bytes(shape)
+        bms, by = bound_ms(nbytes, B * shape["n"] * shape["d"] * (9 if shape["residual"] else 8), F32_FLOPS)
+        shapes.append({**shape, "rows": B * shape["n"], "name": name, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                       "pct_of_bound": 100.0 * bms / ms, "input_sets": len(sets)})
+        log(f"  {shape['label']}: kernel {ms:.4f} ms, {100.0 * bms / ms:.1f} % of its {bms:.4f} ms bound; "
+            f"plain {plain:.4f} ms" + ("" if lib is None else f"; F.layer_norm {lib:.4f} ms"))
+        del sets, got, want
+    torch.cuda.empty_cache()
+    rows = []
+    for name, label in (("layer_norm", "fusion L0 final norm, view"), ("residual_layer_norm", "fusion L0 norm1/norm2")):
+        s0 = next(s for s in shapes if s["label"] == label)
+        rows.append({k: s0[k] for k in ("name", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    | {"max_abs_err": errs[name], "shapes": [s for s in shapes if s["name"] == name]})
+    return rows
 
 
 def phase_attention(torch):
@@ -658,7 +768,10 @@ def phase_small_reference(torch):
         got = gpu.trunk(batch)
         out = gpu.apply_rpn_roi(got, batch["image_hw"])
     torch.cuda.synchronize()
-    if LAUNCHES["attention_fwd"] != 1 or LAUNCHES["residual_layer_norm"] != 4:
+    # K1: 2 fusion layers x 2 + 1 MiniLM layer x 2 residual norms, 2 final
+    # norms and the embeddings norm.
+    if (LAUNCHES["attention_fwd"] != 1 or LAUNCHES["residual_layer_norm"] != 6
+            or LAUNCHES["layer_norm"] != 3):
         raise AssertionError(f"small reference did not take the kernels: {dict(LAUNCHES)}")
     worst = 0.0
     for key in ref:
@@ -806,7 +919,6 @@ def phase_train_slice(torch, np, model, cfg, batch):
     from transfusion_torch.train.optim import make_optimizer
     from transfusion_torch.train.step import LossConfig, TrainState, criterion_weights, make_train_step
 
-    torch.manual_seed(0)  # the attention dropout seeds
     nn_, nv = cfg.detector.roi.num_nouns, cfg.detector.roi.num_verbs
     dev = "cuda"
     batch = dict(batch, targets={
@@ -967,14 +1079,14 @@ def main() -> int:
     for r in ptxas:
         log(f"  {r['source']}: {r['kernel']}: {r['registers']} registers, {r['spill_stores']} bytes spill "
             f"stores, {r['spill_loads']} bytes spill loads")
-    # The wgmma and RoIAlign kernels are built to keep their accumulators in registers.
-    spilled = [r["kernel"] for r in ptxas if ("sm90" in r["kernel"] or "roi_align" in r["kernel"])
+    # The wgmma, RoIAlign and LayerNorm kernels are built to keep their values in registers.
+    spilled = [r["kernel"] for r in ptxas
+               if any(k in r["kernel"] for k in ("sm90", "roi_align", "layer_norm"))
                and r["spill_stores"] + r["spill_loads"]]
     if spilled:
         raise AssertionError(f"ptxas spilled registers in {spilled}")
 
-    results = [phase_layer_norm(torch, False), phase_layer_norm(torch, True),
-               phase_attention(torch), phase_attention_dropout(torch), *phase_attention_bwd(torch),
+    results = [*phase_layer_norm(torch), phase_attention(torch), phase_attention_dropout(torch), *phase_attention_bwd(torch),
                phase_self_attention(torch), phase_roi_align(torch), phase_roi_align_bwd(torch)]
     phase_small_reference(torch)
     phase_small_train_reference(torch)
@@ -998,7 +1110,7 @@ def main() -> int:
         # The record adds the share of the bound reached and, for the products, TFLOP/s.
         records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
                         **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
-                        **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms") if k in r}})
+                        **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms", "shapes") if k in r}})
         log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
             f"{r['plain_ms']:.4f} ms, library "
             f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "

@@ -7,12 +7,12 @@ each other on one CUDA card.
 Each DIR holds a copy of ``transfusion_torch/csrc/attention.cu`` and the
 headers it includes, edited to try one design change; ``transfusion_torch/csrc``
 itself may be given as the baseline. Every variant is built with the port's
-nvcc flags into ``DIR/attention.so`` (all builds started together; registers,
-spills and wgmma serialisation warnings printed), checked against the plain
-version at the level-0 shape [8, 3136, 4, 224] bf16 with the card checks'
-tolerances (rates 0 and 0.15, and K7 in [B, H, N, D]), then timed through its
-C entry points with CUDA events, 20 launches a reading, all variants in
-turns for three rounds.
+nvcc flags into ``DIR/attention.so`` (all builds started together; each
+kernel's registers and spill bytes and any wgmma serialisation warning
+printed), checked against the plain version at the level-0 shape [8, 3136,
+4, 224] bf16 with the card checks' tolerances (rates 0 and 0.15, and K7 in
+[B, H, N, D]), then timed through its C entry points with CUDA events, 20
+launches a reading, all variants in turns for three rounds.
 """
 
 from __future__ import annotations
@@ -30,9 +30,11 @@ RATE, SEED = 0.15, 99
 def build(dirs: list[str], source: str = "attention.cu",
           entries: tuple = ("tf_attention_fwd", "tf_self_attention")) -> dict:
     """Build ``DIR/source`` of every DIR with the port's nvcc flags into
-    ``DIR/<stem>.so`` (all builds started together), print ptxas's register
-    and spill lines and any wgmma serialisation warning, and bind the C
+    ``DIR/<stem>.so`` (all builds started together), print each kernel's
+    registers and spill bytes and any wgmma serialisation warning, and bind the C
     ``entries`` with the port's signatures. Returns {DIR: ctypes library}."""
+    sys.path.insert(0, HERE)
+    import chip_smoke
     from transfusion_torch import kernels
 
     nvcc = kernels._nvcc()
@@ -48,8 +50,11 @@ def build(dirs: list[str], source: str = "attention.cu",
             print(f"{d}: build failed\n{out[-4000:]}")
             continue
         for line in out.splitlines():
-            if "C75" in line or ("spill" in line and " 0 bytes spill stores" not in line) or "Used" in line:
+            if "C75" in line:
                 print(f"{d}/{source}: {line.strip()[:160]}")
+        for r in chip_smoke.ptxas_report({source: out}):
+            print(f"{d}/{source}: {r['kernel']}: {r['registers']} registers, "
+                  f"{r['spill_stores'] + r['spill_loads']} spill bytes")
         lib = ctypes.CDLL(os.path.abspath(os.path.join(d, f"{stem}.so")))
         for name in entries:
             getattr(lib, name).argtypes = kernels._SIGNATURES[name]

@@ -62,9 +62,12 @@ def _bf16_ulp(x):
 
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,d", [(1, 32), (77, 896), (13, 104), (9, 1000)])
+@pytest.mark.parametrize("rows,d", [(1, 32), (77, 896), (13, 104), (9, 1000), (512, 384), (512, 896),
+                                    (6656, 384), (6656, 896)])
 def test_layer_norm_kernel_matches_plain(card, rows, d, dtype, residual):
-    """Rows that leave a block part-empty; widths that leave lanes idle."""
+    """Rows that leave a block part-empty; widths that leave lanes idle; the
+    request's row counts at its widths (the residual form on the ring, the
+    plain form on the rows design)."""
     rng = np.random.default_rng(rows * d)
     x = _on(rng.normal(1.0, 3.0, (rows, d)).astype(np.float32), card, dtype)
     r = _on(rng.normal(0.0, 1.0, (rows, d)).astype(np.float32), card, dtype) if residual else None
@@ -77,6 +80,82 @@ def test_layer_norm_kernel_matches_plain(card, rows, d, dtype, residual):
     assert got.dtype == dtype and got.shape == x.shape
     assert kernels.LAUNCHES["residual_layer_norm" if residual else "layer_norm"] == before + 1
     assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
+
+
+def _ln_inputs(dev, dtype, shape, n, residual, seed):
+    """x [B, N, d] sliced to x[:, :n] where n < N, residual [B, n, d], w, b."""
+    rng = np.random.default_rng(seed)
+    full = _on(rng.normal(1.0, 3.0, shape).astype(np.float32), dev, dtype)
+    x = full[:, :n]
+    r = (_on(rng.normal(0.0, 1.0, x.shape).astype(np.float32), dev, dtype) if residual else None)
+    d = shape[-1]
+    w = _on(rng.normal(1.0, 0.2, (d,)).astype(np.float32), dev)
+    b = _on(rng.normal(0.0, 0.2, (d,)).astype(np.float32), dev)
+    return x, r, w, b
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 384), (1, 896), (15, 896), (16, 896), (17, 896), (7, 384), (8, 384),
+                                    (9, 384), (512, 384), (6656, 896), (16383, 896), (16384, 896),
+                                    (16385, 384), (25088, 896)])
+def test_layer_norm_designs_match_plain(card, rows, d, dtype, residual):
+    """Both hand-written designs at the fixed widths, as the kernel chooses
+    them: the residual form always on the ring; the plain form on the rows
+    design below 16,384 rows and on the ring from there (16,383 / 16,384 /
+    16,385 sit on either side). One row, a tile's edge +- 1 row (a rows
+    block holds 16 bf16 / 8 f32 rows at 896, a ring tile 2 / 1, a ring
+    block's first sweep 4 or 8 tiles) and the request's row counts."""
+    x, r, w, b = _ln_inputs(card, dtype, (1, rows, d), rows, residual, rows + d)
+    got = ln._layer_norm_cuda(x, w, b, 1e-6, r)
+    want = ln.layer_norm_plain(x, w, b, residual=r)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n", [((8, 3136, 896), 3072), ((24, 700, 896), 683), ((3, 80, 896), 77),
+                                     ((2, 5, 384), 3), ((4, 19, 384), 17)])
+def test_layer_norm_reads_a_batch_strided_view(card, shape, n, dtype):
+    """x[:, :n] of a contiguous [B, N, d], n not a multiple of a tile (but
+    3072), read in place by the ring (24,576 and 16,392 rows) and by the
+    rows design (the rest): the output contiguous, equal to the plain
+    version of the view's contiguous copy; FusedLayerNorm passes the view
+    through as the final norm does, allocating its output and no copy of x."""
+    x, _, w, b = _ln_inputs(card, dtype, shape, n, False, n)
+    assert not x.is_contiguous() and ln.row_layout(x) == (n, shape[1] * shape[2])
+    got = ln._layer_norm_cuda(x, w, b, 1e-6, None)
+    want = ln.layer_norm_plain(x.contiguous(), w, b)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == x.shape
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
+    layer = ln.FusedLayerNorm(shape[-1], dtype=dtype).to(card).eval()
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        layer.bias.copy_(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        y = layer(x)
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 1.5 * y.numel() * y.element_size()
+    assert _err(y, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
+
+
+def test_layer_norm_kernel_refuses_what_it_does_not_take(card):
+    """A view whose rows are not contiguous, a strided residual; and, at the
+    C entry, a row count that is not a whole number of batches."""
+    x = torch.randn(2, 8, 64, device=card)
+    w, b = torch.ones(32, device=card), torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        ln.fused_layer_norm(x[..., :32], w, b)
+    xs = torch.randn(2, 4, 32, device=card)
+    with pytest.raises(ValueError, match="residual"):
+        ln.fused_layer_norm(xs, w, b, residual=torch.randn(2, 32, 4, device=card).transpose(1, 2))
+    out = torch.empty_like(xs)
+    code = kernels.library().tf_layer_norm(xs.data_ptr(), None, w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                           8, 32, 3, 96, 1e-6, 0, kernels.stream_handle(card))
+    assert code != 0
 
 
 # bf16 sequence lengths around the forward's 64-key stages and 128-query

@@ -38,22 +38,71 @@ def _t(x, dtype=None):
 # --------------------------------------------------------------- (a) K1 LN
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [32, 896])
+@pytest.mark.parametrize("d", [32, 896, 384])
 def test_layer_norm_matches_jax(rng, d, dtype, residual):
-    """74 rows (not a multiple of the TPU kernel's 256-row block). f32: 1e-5;
-    bf16: outputs may differ by one bf16 ulp (|y| < 8 -> 3e-2) because the
-    two packages sum the statistics in different orders."""
+    """74 rows (not a multiple of the TPU kernel's 256-row block); d 384 at
+    MiniLM's eps 1e-12 (the narration encoder's norms run K1 too), the
+    others at the fusion's 1e-6. f32: 1e-5; bf16: outputs may differ by one
+    bf16 ulp (|y| < 8 -> 3e-2) because the two packages sum the statistics
+    in different orders."""
+    eps = 1e-12 if d == 384 else 1e-6
     x = rng.normal(2.0, 3.0, (2, 37, d)).astype(np.float32)
     r = rng.normal(0.0, 1.0, (2, 37, d)).astype(np.float32)
     w = rng.normal(1.0, 0.2, (d,)).astype(np.float32)
     b = rng.normal(0.0, 0.2, (d,)).astype(np.float32)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    ref = j_fused_ln(jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(b),
+    ref = j_fused_ln(jnp.asarray(x).astype(jdt), jnp.asarray(w), jnp.asarray(b), eps,
                      residual=jnp.asarray(r).astype(jdt) if residual else None)
-    got = t_ln.fused_layer_norm(_t(x, tdt), _t(w), _t(b), residual=_t(r, tdt) if residual else None)
+    got = t_ln.fused_layer_norm(_t(x, tdt), _t(w), _t(b), eps, residual=_t(r, tdt) if residual else None)
     assert got.dtype == tdt
     tol = 1e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), rtol=tol, atol=tol)
+
+
+def test_layer_norm_row_layout_reads_views_in_place():
+    """K1 reads x in place when its rows are contiguous within each batch:
+    a contiguous tensor (one batch), the final norm's x[:, :n] of a [B, N, d]
+    sequence (rows per batch n, batch stride N * d), leading dims that merge;
+    anything else (a strided last dim, split rows, unmergeable batch dims)
+    gets no layout, and FusedLayerNorm copies it first. On the CPU the view
+    and its copy normalise alike."""
+    x = torch.randn(3, 10, 16)
+    assert t_ln.row_layout(x) == (30, 0)
+    assert t_ln.row_layout(x[:, :7]) == (7, 160)
+    assert t_ln.row_layout(torch.randn(2, 3, 10, 16)[:, :, :7]) == (7, 160)
+    assert t_ln.row_layout(x[:, :, :8]) is None
+    assert t_ln.row_layout(x[:, ::2]) is None
+    assert t_ln.row_layout(torch.randn(2, 3, 10, 16)[:, :2, :7]) is None
+    layer = t_ln.FusedLayerNorm(16).eval()
+    assert torch.equal(layer(x[:, :7]), layer(x[:, :7].contiguous()))
+
+
+def test_minilm_layer_norms_take_k1_in_eval_and_the_plain_version_in_training(monkeypatch):
+    """flax_layer_norm runs K1's wrapper (fused_layer_norm) in eval, the
+    residual post-norms with their add folded in, and the plain,
+    differentiable version in training: 1 + 2 x layers calls either way."""
+    from transfusion_torch.models import text_encoder as te
+
+    calls = {"fused": [], "plain": []}
+
+    def counting(kind, fn):
+        def wrapped(x, w, b, eps, residual=None):
+            calls[kind].append(residual is not None)
+            return fn(x, w, b, eps, residual)
+        return wrapped
+
+    monkeypatch.setattr(te, "fused_layer_norm", counting("fused", t_ln.fused_layer_norm))
+    monkeypatch.setattr(te, "layer_norm_plain", counting("plain", t_ln.layer_norm_plain))
+    cfg = te.BertConfig(vocab_size=50, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
+                        max_position_embeddings=16, dropout=0.0)
+    enc = te.BertEncoder(cfg).eval()
+    ids, mask = torch.randint(0, 50, (2, 8)), torch.ones(2, 8, dtype=torch.int64)
+    with torch.no_grad():
+        want = enc(ids, mask)
+    assert calls == {"fused": [False, True, True, True, True], "plain": []}
+    got = enc.train()(ids, mask)
+    assert calls["plain"] == [False, True, True, True, True] and len(calls["fused"]) == 5
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ------------------------------------------------------------ (b) K2 attention
@@ -219,8 +268,8 @@ def test_nms_matches_jax_slot_by_slot(rng, block):
 # ------------------------------------------------ (g) no JAX in the port
 def _port_files():
     pkg = os.path.join(REPO, "transfusion_torch")
-    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "ab_attention_fwd.py"),
-             os.path.join(REPO, "scripts", "ab_roi_align.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "scripts", f) for f in ("ab_attention_fwd.py", "ab_roi_align.py", "ab_layer_norm.py")]
     for root, dirs, names in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output, not package source
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the attention kernels (attention.cu,
-// attention_bwd.cu): TMA tile loads completed on an mbarrier, named
-// barriers, and the asynchronous warpgroup product wgmma.mma_async with its shared-memory
+// attention_bwd.cu) and the LayerNorm ring (layer_norm.cu): TMA tile loads
+// and plain bulk copies completed on an mbarrier, named barriers, and the
+// asynchronous warpgroup product wgmma.mma_async with its shared-memory
 // matrix descriptors. Plain PTX through inline asm, so the build needs only
 // the CUDA toolkit.
 //
@@ -67,6 +68,14 @@ static __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap, 
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(cta_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(cta_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory; completion is counted on `bar`.
+static __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(cta_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(cta_addr(bar))
+               : "memory");
 }
 
 // ------------------------------------------------------------ named barriers

@@ -44,8 +44,9 @@ _L = ctypes.c_longlong
 # (uint32), 1 / (1 - rate), dropout on (int).
 _DROP = [_U, _U, _F, _I]
 _SIGNATURES = {
-    # x, residual (or NULL), weight, bias, out, rows, d, eps, is_bf16, stream
-    "tf_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    # x, residual (or NULL), weight, bias, out, rows, d, rows per batch of x,
+    # batch stride of x (elements), eps, is_bf16, stream
+    "tf_layer_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _F, _I, _P],
     # q, k, v, key bias [B, N] f32, out, stats [B, H, N, 2] f32, B, N, H, D,
     # scale, is_bf16, dropout..., stream
     "tf_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP, _P],

@@ -88,12 +88,13 @@ class FasterRCNN(nn.Module):
         return self.backbone.fpn(feats)
 
     def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
-                      draws=None, generator=None):
+                      draws=None, generator=None, rng=None):
         """RPN + RoI heads over FPN maps. Eval: every proposal. ``train``:
         targets {boxes [B, G, 4], nouns, verbs, ttcs, valid [B, G]} are
         assigned and S RoIs an image sampled with ``draws`` (positive and
         negative uniform keys [B, P + G]), drawn from ``generator`` when not
-        given. Returns {"roi_outputs", "proposals", "image_sizes"}; in
+        given; ``rng`` (a DropoutRNG) feeds the RoI dropouts in training
+        mode. Returns {"roi_outputs", "proposals", "image_sizes"}; in
         training roi_outputs also carries labels (nouns, verbs, ttcs) and
         reg_targets, and proposals the anchor labels and matches."""
         objectness, deltas = self.rpn.head(fpn_feats)
@@ -114,17 +115,17 @@ class FasterRCNN(nn.Module):
             rois, roi_valid = rpn_out["boxes"], rpn_out["valid"]
         levels = {k: v.permute(0, 2, 3, 1) for k, v in fpn_feats.items() if k.isdigit()}
         pooled = multiscale_roi_align(levels, rois, image_hw)
-        pooled = dropout(pooled, self.cfg.roi.box_1_dropout, self.training)
-        roi_outputs = {**self.roi_heads(pooled), "proposals": rois, "proposals_valid": roi_valid}
+        pooled = dropout(pooled, self.cfg.roi.box_1_dropout, self.training, rng)
+        roi_outputs = {**self.roi_heads(pooled, rng), "proposals": rois, "proposals_valid": roi_valid}
         if sampled is not None:
             roi_outputs["labels"] = (sampled["nouns"], sampled["verbs"], sampled["ttcs"])
             roi_outputs["reg_targets"] = sampled["reg_targets"]
         return {"roi_outputs": roi_outputs, "proposals": rpn_out, "image_sizes": tuple(image_hw)}
 
     def forward(self, images, image_hw, targets=None, train: bool = False, draws=None,
-                generator=None):
+                generator=None, rng=None):
         return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images)), image_hw,
-                                  targets, train, draws, generator)
+                                  targets, train, draws, generator, rng)
 
 
 def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None):

@@ -17,7 +17,7 @@ Attention takes kernels K2 (forward) and K3/K4 (backward) exactly where the
 JAX model takes its Pallas kernels: no attention mask, ``use_flash`` set and
 a sequence of at least 2048 tokens (``transfusion_tpu/models/fusion.py:161``);
 in training K2 drops attention probabilities at ``token_dropout`` with a
-seed drawn per layer and call from torch's default generator. Shorter
+seed drawn per layer and call from the step's ``DropoutRNG``. Shorter
 levels take the plain path, which masks with -1e9 and scales in the compute
 dtype as XLA's path does. norm1/norm2/final_norm use kernel K1 in eval and
 the plain LayerNorm in training (:mod:`transfusion_torch.ops.layer_norm`).
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transfusion_torch.models.resnet import conv
-from transfusion_torch.models.text_encoder import dropout, linear
+from transfusion_torch.models.text_encoder import dropout, linear, need_rng
 from transfusion_torch.ops.attention import flash_attention_train
 from transfusion_torch.ops.layer_norm import FusedLayerNorm
 
@@ -91,12 +91,6 @@ class MultiheadSelfAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
 
-def draw_seed() -> int:
-    """An int32 dropout seed from torch's default (CPU) generator: no device
-    synchronisation, reproducible under ``torch.manual_seed``."""
-    return int(torch.randint(-2 ** 31, 2 ** 31, ()))
-
-
 class EncoderLayer(nn.Module):
     """torch ``nn.TransformerEncoderLayer``, post-norm, exact GELU, batch
     first; ``dropout_rate`` at its four sites in training mode."""
@@ -112,7 +106,7 @@ class EncoderLayer(nn.Module):
         self.norm1 = FusedLayerNorm(dim, dtype=dtype)
         self.norm2 = FusedLayerNorm(dim, dtype=dtype)
 
-    def forward(self, x, key_padding_mask=None, attn_mask=None):
+    def forward(self, x, key_padding_mask=None, attn_mask=None, rng=None):
         b, l, d = x.shape
         dt, hd = self.dtype, self.dim // self.num_heads
         w = self.self_attn.in_proj_weight.to(dt)
@@ -122,7 +116,7 @@ class EncoderLayer(nn.Module):
                    .reshape(b, l, self.num_heads, hd) for i in range(3))
         rate = self.dropout_rate if self.training else 0.0
         if attn_mask is None and self.use_flash and l >= FLASH_MIN_LEN:
-            seed = draw_seed() if rate > 0.0 else 0
+            seed = need_rng(rng).attention_seed() if rate > 0.0 else 0
             ctx = flash_attention_train(q, k, v, key_padding_mask, rate, seed).reshape(b, l, d)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(hd ** 0.5, dtype=dt)
@@ -130,12 +124,12 @@ class EncoderLayer(nn.Module):
                 scores = scores.masked_fill(key_padding_mask[:, None, None, :], -1e9)
             if attn_mask is not None:
                 scores = scores.masked_fill(attn_mask[None, None], -1e9)
-            probs = dropout(torch.softmax(scores, dim=-1), rate, True)
+            probs = dropout(torch.softmax(scores, dim=-1), rate, True, rng)
             ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, d)
-        attn_out = dropout(linear(ctx, self.self_attn.out_proj, dt), rate, True)
+        attn_out = dropout(linear(ctx, self.self_attn.out_proj, dt), rate, True, rng)
         x = self.norm1(x, residual=attn_out)
-        h = dropout(F.gelu(linear(x, self.linear1, dt)), rate, True)
-        h = dropout(linear(h, self.linear2, dt), rate, True)
+        h = dropout(F.gelu(linear(x, self.linear1, dt)), rate, True, rng)
+        h = dropout(linear(h, self.linear2, dt), rate, True, rng)
         return self.norm2(x, residual=h)
 
 
@@ -174,15 +168,16 @@ class CrossFusionLevel(nn.Module):
         self.final_norm_layer = FusedLayerNorm(token_dim, dtype=dtype)
 
     def forward(self, feat, lang_tokens, lang_mask, patch_conv: nn.Conv2d,
-                back_proj: RegroupPatches):
-        """feat [B, C, H, W] -> fused [B, C, H, W]."""
+                back_proj: RegroupPatches, rng=None):
+        """feat [B, C, H, W] -> fused [B, C, H, W]; ``rng`` the step's
+        DropoutRNG in training."""
         b, c, h, w = feat.shape
         ph, pw = self.patch_hw
         vis = conv(feat, patch_conv, self.dtype)            # [B, D, gh, gw]
         gh, gw = vis.shape[2:]
         n = gh * gw
         vis = self.pos(vis.flatten(2).transpose(1, 2))      # [B, n, D]
-        vis = dropout(vis + self.image_kind_embedding, self.patch_dropout, self.training)
+        vis = dropout(vis + self.image_kind_embedding, self.patch_dropout, self.training, rng)
         lang = lang_tokens + self.lang_kind_embedding
         # The first consumers (projections, norm1) cast to the compute dtype.
         x = torch.cat([vis, lang], dim=1).to(self.dtype)
@@ -195,8 +190,8 @@ class CrossFusionLevel(nn.Module):
             joint[:n, :n] = vis_mask
             attn_mask = torch.from_numpy(joint).to(x.device)
         for layer in self.t_encoder.layers:
-            x = layer(x, key_padding_mask=pad, attn_mask=attn_mask)
-        vis_out = dropout(self.final_norm_layer(x[:, :n]), self.backproj_dropout, self.training)
+            x = layer(x, key_padding_mask=pad, attn_mask=attn_mask, rng=rng)
+        vis_out = dropout(self.final_norm_layer(x[:, :n]), self.backproj_dropout, self.training, rng)
         # RegroupPatchesLayerBox: linear -> fold with (C, ph, pw) channel blocks.
         y = linear(vis_out, back_proj.linear, self.dtype)
         y = y.reshape(b, gh, gw, c, ph, pw).permute(0, 3, 1, 4, 2, 5).reshape(b, c, gh * ph, gw * pw)

@@ -66,13 +66,13 @@ class BoxHead(nn.Module):
         return F.relu(linear(h, self.fc7, self.dtype))
 
 
-def predictors(heads, box_features, cfg: RoIConfig, dtype):
+def predictors(heads, box_features, cfg: RoIConfig, dtype, rng=None):
     """The reference's box_regressor / noun / verb / ttc heads over box
     features; ``heads`` is the module holding them (its training mode turns
-    the box_2 / classif dropouts on)."""
-    h = dropout(box_features, cfg.box_2_dropout, heads.training)
+    the box_2 / classif dropouts on, drawn from ``rng``)."""
+    h = dropout(box_features, cfg.box_2_dropout, heads.training, rng)
     box_regression = linear(h, heads.box_regressor[1], dtype)
-    h = dropout(box_features, cfg.classif_dropout, heads.training)
+    h = dropout(box_features, cfg.classif_dropout, heads.training, rng)
     class_logits = linear(h, heads.noun_classifier, dtype)
     verb_logits = linear(h, heads.verb_classifier, dtype)
     ttcs = F.softplus(linear(h, heads.ttc_pred_layer, dtype))[..., 0] if cfg.ttc_on else None
@@ -99,8 +99,8 @@ class RoIHeads(nn.Module):
         if cfg.ttc_on:
             self.ttc_pred_layer = nn.Linear(rep, 1)
 
-    def forward(self, pooled):
-        return predictors(self, self.box_head(pooled), self.cfg, self.dtype)
+    def forward(self, pooled, rng=None):
+        return predictors(self, self.box_head(pooled), self.cfg, self.dtype, rng)
 
 
 def _take(x, idx):

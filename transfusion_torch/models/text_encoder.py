@@ -5,9 +5,15 @@ probabilities, attention and feed-forward outputs, after ``out_mlp``).
 
 Parameter names follow huggingface ``BertModel`` under the reference's
 ``narr_pooling_layer.encoder.0.auto_model`` prefix, so the state dict is the
-reference checkpoint's. LayerNorms here are plain PyTorch with flax
-semantics (f32 statistics, var = E[x^2] - mean^2, eps 1e-12), as the JAX
-model leaves them to XLA.
+reference checkpoint's. The LayerNorms have flax semantics (f32
+statistics, var = E[x^2] - mean^2, eps 1e-12), which is kernel K1's
+arithmetic: in eval they run K1 (:func:`fused_layer_norm`, the residual
+post-norms with their add folded in), in training its plain, differentiable
+version. The JAX model leaves them to XLA.
+
+Dropout draws from a :class:`DropoutRNG`, the explicit generators of one
+train step derived from (seed, step), which the step passes down as ``rng``;
+eval makes no draw.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from transfusion_torch.ops.layer_norm import layer_norm_plain
+from transfusion_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
 
 
 @dataclass(frozen=True)
@@ -44,17 +50,67 @@ def linear(x, mod: nn.Linear, dtype):
     return F.linear(x.to(dtype), mod.weight.to(dtype), b)
 
 
-def dropout(x, rate: float, training: bool):
-    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
-    1 / (1 - rate) in training; the identity otherwise or at rate 0."""
-    return F.dropout(x, rate, True) if training and rate > 0.0 else x
+# Offsets that keep DropoutRNG's streams apart from each other and from the
+# samplers' generator (train.step.step_generator seeds it with seed * 1_000_003
+# + step).
+_MASK_STREAM, _SEED_STREAM = 1 << 48, 2 << 48
 
 
-def flax_layer_norm(x, mod: nn.LayerNorm, dtype):
-    """flax ``nn.LayerNorm(dtype=dtype)``: f32 statistics with the fast
-    variance (the plain version of kernel K1's arithmetic), f32 affine,
-    output in ``dtype``."""
-    return layer_norm_plain(x, mod.weight, mod.bias, mod.eps).to(dtype)
+class DropoutRNG:
+    """The dropout randomness of one train step, a function of (seed, step)
+    alone, so that the step replays: keep masks from a generator on the
+    model's device, and kernel K2's int32 seeds from a CPU generator (drawn
+    without a device synchronisation)."""
+
+    def __init__(self, device, seed: int, step: int):
+        base = seed * 1_000_003 + step
+        self.masks = torch.Generator(device=device).manual_seed(base + _MASK_STREAM)
+        self.seeds = torch.Generator().manual_seed(base + _SEED_STREAM)
+
+    def attention_seed(self) -> int:
+        return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.seeds))
+
+    def keep(self, x, rate: float):
+        """flax ``nn.Dropout`` of ``x``: keep with probability 1 - rate, scaled
+        by 1 / (1 - rate), in PyTorch's fused dropout kernel. That kernel takes
+        no generator, so the mask generator's state is swapped into the
+        device's default generator for the one draw and back out after it:
+        the draw advances the mask generator, and the default generator ends
+        as it began. (A mask drawn apart and applied by torch.where cost the
+        flagship train step about 8 ms of device time on the card.)"""
+        default = (torch.cuda.default_generators[x.device.index if x.device.index is not None
+                                                 else torch.cuda.current_device()]
+                   if x.device.type == "cuda" else torch.default_generator)
+        before = default.get_state()
+        default.set_state(self.masks.get_state())
+        try:
+            return F.dropout(x, rate, True)
+        finally:
+            self.masks.set_state(default.get_state())
+            default.set_state(before)
+
+
+def need_rng(rng):
+    if rng is None:
+        raise ValueError("dropout in training mode draws from the step's DropoutRNG: pass rng")
+    return rng
+
+
+def dropout(x, rate: float, training: bool, rng: DropoutRNG | None):
+    """flax ``nn.Dropout`` in training at a rate above 0 (drawn from
+    ``rng``); the identity otherwise."""
+    return need_rng(rng).keep(x, rate) if training and rate > 0.0 else x
+
+
+def flax_layer_norm(x, mod: nn.LayerNorm, dtype, residual=None):
+    """flax ``nn.LayerNorm(dtype=dtype)`` of ``x`` (or of ``x + residual``,
+    both cast to ``dtype`` and summed in it): f32 statistics with the fast
+    variance, f32 affine, output in ``dtype``. Kernel K1 in eval; in
+    training its plain, differentiable version (K1 has no backward)."""
+    if residual is not None:
+        x, residual = x.to(dtype), residual.to(dtype)
+    norm = layer_norm_plain if mod.training else fused_layer_norm
+    return norm(x, mod.weight, mod.bias, mod.eps, residual).to(dtype)
 
 
 class _Embeddings(nn.Module):
@@ -97,7 +153,7 @@ class BertLayer(nn.Module):
         self.intermediate = _Dense(c.hidden_size, c.intermediate_size)
         self.output = _Dense(c.intermediate_size, c.hidden_size, c.layer_norm_eps)
 
-    def forward(self, h, mask):
+    def forward(self, h, mask, rng=None):
         c, dt = self.cfg, self.dtype
         b, l, _ = h.shape
         hd = c.hidden_size // c.num_heads
@@ -110,13 +166,13 @@ class BertLayer(nn.Module):
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(hd ** 0.5, dtype=dt)
         scores = torch.where(mask[:, None, None, :] > 0, scores,
                              torch.tensor(-1e9, dtype=scores.dtype, device=scores.device))
-        probs = dropout(torch.softmax(scores, dim=-1), c.dropout, self.training)
+        probs = dropout(torch.softmax(scores, dim=-1), c.dropout, self.training, rng)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, l, c.hidden_size)
-        attn = dropout(linear(ctx, self.attention.output.dense, dt), c.dropout, self.training)
-        h = flax_layer_norm(h + attn, self.attention.output.LayerNorm, dt)
+        attn = dropout(linear(ctx, self.attention.output.dense, dt), c.dropout, self.training, rng)
+        h = flax_layer_norm(h, self.attention.output.LayerNorm, dt, residual=attn)
         inter = F.gelu(linear(h, self.intermediate.dense, dt))
-        out = dropout(linear(inter, self.output.dense, dt), c.dropout, self.training)
-        return flax_layer_norm(h + out, self.output.LayerNorm, dt)
+        out = dropout(linear(inter, self.output.dense, dt), c.dropout, self.training, rng)
+        return flax_layer_norm(h, self.output.LayerNorm, dt, residual=out)
 
 
 class _Encoder(nn.Module):
@@ -134,14 +190,14 @@ class BertEncoder(nn.Module):
         self.embeddings = _Embeddings(c)
         self.encoder = _Encoder(c, dtype)
 
-    def forward(self, input_ids, attention_mask):
+    def forward(self, input_ids, attention_mask, rng=None):
         e = self.embeddings
         l = input_ids.shape[1]
         word = e.word_embeddings.weight.to(self.dtype)[input_ids]
         h = word + e.position_embeddings.weight[:l][None] + e.token_type_embeddings.weight[0][None, None]
-        h = dropout(flax_layer_norm(h, e.LayerNorm, self.dtype), self.cfg.dropout, self.training)
+        h = dropout(flax_layer_norm(h, e.LayerNorm, self.dtype), self.cfg.dropout, self.training, rng)
         for layer in self.encoder.layer:
-            h = layer(h, attention_mask)
+            h = layer(h, attention_mask, rng)
         return h
 
 
@@ -171,8 +227,8 @@ class NarrationEncoder(nn.Module):
             nn.Linear(c.hidden_size, out_mlp) if out_mlp and out_mlp != c.hidden_size else None
         )
 
-    def forward(self, input_ids, attention_mask):
-        tokens = self.encoder[0].auto_model(input_ids, attention_mask)
+    def forward(self, input_ids, attention_mask, rng=None):
+        tokens = self.encoder[0].auto_model(input_ids, attention_mask, rng)
         if self.out_mlp is not None:
             tokens = linear(tokens, self.out_mlp, self.dtype)
-        return dropout(tokens, self.out_dropout, self.training), attention_mask
+        return dropout(tokens, self.out_dropout, self.training, rng), attention_mask

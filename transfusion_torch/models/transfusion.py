@@ -10,7 +10,8 @@ reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
 the JAX batch contract: ``image [B, H, W, 3]``, ``input_ids``,
 ``attention_mask``, ``image_hw`` and, to train, ``targets``. As in JAX,
 ``forward(batch, train=True)`` assigns targets and samples RoIs; dropout
-follows the module's ``.train()`` / ``.eval()`` mode.
+follows the module's ``.train()`` / ``.eval()`` mode and draws from the
+``rng`` (a ``text_encoder.DropoutRNG``) the train step passes.
 """
 
 from __future__ import annotations
@@ -113,22 +114,22 @@ class TransFusion(FasterRCNN):
             ))
         self.to(dev).eval()
 
-    def trunk(self, batch: dict):
+    def trunk(self, batch: dict, rng=None):
         """Backbone -> per-level language fusion (each fused map replaces its
         backbone map; every level sees the encoder's language tokens) -> FPN."""
         feats = self.forward_features(batch["image"])
         dev = self.device
         lang, lang_mask = self.narr_pooling_layer(batch["input_ids"].to(dev),
-                                                  batch["attention_mask"].to(dev))
+                                                  batch["attention_mask"].to(dev), rng)
         for i, lvl in enumerate(self.tcfg.fusion.fpn_features):
             key = str(lvl)
             feats[key] = self.cross_fusion_encoders[i](
-                feats[key], lang, lang_mask, self.patches_to_token[i], self.tokens_to_features[i])
+                feats[key], lang, lang_mask, self.patches_to_token[i], self.tokens_to_features[i], rng)
         return self.apply_fpn(feats)
 
-    def forward(self, batch: dict, train: bool = False, draws=None, generator=None):
+    def forward(self, batch: dict, train: bool = False, draws=None, generator=None, rng=None):
         """Returns {"roi_outputs", "proposals", "image_sizes"} (see
-        ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws`` and
-        ``generator``)."""
-        return self.apply_rpn_roi(self.trunk(batch), batch["image_hw"], batch.get("targets"),
-                                  train, draws, generator)
+        ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws``, ``generator``
+        and ``rng``)."""
+        return self.apply_rpn_roi(self.trunk(batch, rng), batch["image_hw"], batch.get("targets"),
+                                  train, draws, generator, rng)

@@ -7,7 +7,9 @@ eps 1e-6 by default, f32 affine, output in the input dtype. The residual form
 LN(x + r) rounds the sum to the input dtype before the statistics, as the TPU
 kernel does.
 
-On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``;
+On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``,
+which reads ``x`` in place when its rows are contiguous within each batch
+(:func:`row_layout`: a contiguous tensor, or a view such as ``x[:, :n]``);
 on a CPU tensor it runs :func:`layer_norm_plain`. The kernel has no
 backward, as the TPU kernel runs on eval passes only (layer_norm.py:175-192):
 it refuses a CUDA input that requires grad while grad mode is on, and
@@ -34,6 +36,24 @@ def layer_norm_plain(x, weight, bias, eps: float = 1e-6, residual=None):
     return y.to(x.dtype)
 
 
+def row_layout(x):
+    """(rows per batch, batch stride in elements) with which the kernel reads
+    ``x`` in place, or None. A contiguous ``x`` is one batch of all its rows;
+    otherwise the last two dims must hold contiguous rows ([..., n, d] with
+    strides (..., d, 1)) and the dims before them must merge into one batch
+    dim, as in ``x[:, :n]`` of a contiguous [B, N, d]."""
+    d = x.shape[-1]
+    if x.is_contiguous():
+        return x.numel() // d, 0
+    if x.dim() < 3 or x.stride(-1) != 1 or x.stride(-2) != d:
+        return None
+    lead = [(n, st) for n, st in zip(x.shape[:-2], x.stride()[:-2]) if n != 1]
+    for (_, st), (n_in, st_in) in zip(lead, lead[1:]):
+        if st != st_in * n_in:
+            return None
+    return x.shape[-2], lead[-1][1] if lead else 0
+
+
 def _layer_norm_cuda(x, weight, bias, eps, residual):
     d = x.shape[-1]
     if torch.is_grad_enabled() and any(
@@ -41,9 +61,12 @@ def _layer_norm_cuda(x, weight, bias, eps, residual):
         raise RuntimeError("fused_layer_norm: the LayerNorm kernel has no backward; train with "
                            "layer_norm_plain (FusedLayerNorm does in training mode)")
     kernels.require(x.dtype in (torch.float32, torch.bfloat16), f"layer_norm: dtype {x.dtype}")
-    kernels.require(x.is_contiguous(), "layer_norm: x must be contiguous")
-    kernels.require(d % 8 == 0 and d <= 1024, "layer_norm: the last dim must be a multiple of 8, <= 1024")
-    kernels.require(x.data_ptr() % 16 == 0, "layer_norm: x must be 16-byte aligned")
+    kernels.require(0 < d <= 1024 and d % 8 == 0, "layer_norm: the last dim must be a multiple of 8, <= 1024")
+    layout = row_layout(x)
+    kernels.require(layout is not None, "layer_norm: x must hold contiguous rows within each batch")
+    rows_per_batch, batch_stride = layout
+    kernels.require(x.data_ptr() % 16 == 0 and batch_stride * x.element_size() % 16 == 0,
+                    "layer_norm: x and its batch stride must be 16-byte aligned")
     kernels.require(weight.shape == (d,) and bias.shape == (d,), "layer_norm: affine shape")
     kernels.require(weight.dtype == torch.float32 and bias.dtype == torch.float32,
                     "layer_norm: affine params must be float32")
@@ -52,14 +75,15 @@ def _layer_norm_cuda(x, weight, bias, eps, residual):
         kernels.require(residual.shape == x.shape and residual.dtype == x.dtype
                         and residual.is_contiguous() and residual.device == x.device
                         and residual.data_ptr() % 16 == 0,
-                        "layer_norm: residual must match x")
+                        "layer_norm: residual must match x and be contiguous")
     w, b = weight.contiguous(), bias.contiguous()
-    out = torch.empty_like(x)
+    kernels.require(w.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                    "layer_norm: affine params must be 16-byte aligned")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     rows = x.numel() // d
-    lib = kernels.library()
-    code = lib.tf_layer_norm(
+    code = kernels.library().tf_layer_norm(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
-        w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, d, float(eps),
+        w.data_ptr(), b.data_ptr(), out.data_ptr(), rows, d, rows_per_batch, batch_stride, float(eps),
         int(x.dtype == torch.bfloat16), kernels.stream_handle(x.device),
     )
     kernels.check(code, "tf_layer_norm")
@@ -88,7 +112,9 @@ class FusedLayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x, residual=None):
-        x = x.to(self.dtype).contiguous()
+        x = x.to(self.dtype)
+        if row_layout(x) is None:
+            x = x.contiguous()  # the kernel reads batch-strided views such as x[:, :n] in place
         if residual is not None:
             residual = residual.to(self.dtype).contiguous()
         if self.training:

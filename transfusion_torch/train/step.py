@@ -11,10 +11,12 @@ to f32, and the optimizer state and update stay f32: the
 construction. Biases and norm scales are used in f32 where JAX keeps them
 f32.
 
-Randomness: the RoI and RPN samplers take uniform keys (``draws``); the step
-draws them from an explicit ``torch.Generator`` seeded by (seed, step)
-unless the caller passes them, as the parity tests pass JAX's. Dropout draws
-from torch's own generators (attention seeds from the CPU one).
+Randomness is a function of (seed, step), as JAX folds the step into its
+key, so a resumed run replays its steps: the RoI and RPN samplers take
+uniform keys (``draws``) from an explicit ``torch.Generator`` seeded by
+(seed, step) unless the caller passes them, as the parity tests pass JAX's;
+dropout draws from the step's ``DropoutRNG`` (keep masks on the model's
+device, attention-kernel seeds from a CPU generator).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from transfusion_torch.models.text_encoder import DropoutRNG
 from transfusion_torch.ops.matcher import uniform_draws
 from transfusion_torch.train import losses as L
 
@@ -139,7 +142,8 @@ def make_train_step(model, tx, loss_cfg: LossConfig, noun_w, verb_w):
             p.grad = None
         gen = step_generator(dev, state.seed, state.step)
         draws = draws or {}
-        outputs = model(batch, train=True, draws=draws.get("roi"), generator=gen)
+        outputs = model(batch, train=True, draws=draws.get("roi"), generator=gen,
+                        rng=DropoutRNG(dev, state.seed, state.step))
         rpn_draws = draws.get("rpn")
         if rpn_draws is None:
             rpn_draws = uniform_draws(outputs["proposals"]["objectness"].shape, gen)
