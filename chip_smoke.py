@@ -38,7 +38,17 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    and a few timed steps; frames/s, peak memory, finite losses, no skipped
    step, non-zero gradients upstream of the attention and RoIAlign
    kernels, and launches a step of attention-with-dropout 4 / dQ 4 /
-   dK-dV 4 / RoIAlign 1 / RoIAlign backward 1 / LayerNorm 0.
+   dK-dV 4 / RoIAlign 1 / RoIAlign backward 1 / LayerNorm 0;
+6. the trainer: ``EgoNaoTrainer(flagship_run_config(), ...).fit(1)`` on
+   in-memory examples at the 768x1024 bucket (32 train, 16 val, 1-2 GT
+   boxes each, v2 label space, narrations through the hash-vocab tokenizer
+   at 128 tokens): 4 train steps, 2 validation batches with losses
+   (``eval_with_losses``), STA mAP, the result JSON, a checkpoint,
+   ``history.jsonl`` and ``best.json``; launches per train step as the
+   train slice, per validation batch LN 5 / residual LN 56 / attention 4 /
+   RoIAlign 2; then a fresh trainer resumed from the checkpoint must hold
+   the same parameters, optimizer state, step and seed bit for bit, and
+   evaluate to the same detections bit for bit, the same mAP and losses.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -96,6 +106,11 @@ SOURCES = {
     "roi_align_fwd": "transfusion_torch/csrc/roi_align.cu",
     "roi_align_bwd": "transfusion_torch/csrc/roi_align_bwd.cu",
 }
+TRAINER_TRAIN, TRAINER_VAL, TRAINER_LANG = 32, 16, 128
+# eval_with_losses runs the RoI heads twice on one trunk, one RoIAlign each:
+# every proposal for the detections, the sampled RoIs for the losses.
+EXPECTED_PER_VAL_BATCH = {"layer_norm": 5, "residual_layer_norm": 56, "attention_fwd": 4,
+                          "roi_align_fwd": 2}
 N0, HEADS, HEAD_DIM = 3136, 4, 224  # fusion level 0: 3072 visual + 64 language tokens
 DROPOUT = 0.15  # token_dropout, the rate K2 runs at in training
 
@@ -974,6 +989,292 @@ def phase_train_slice(torch, np, model, cfg, batch):
     return rec, lambda: step(state, batch, lw, mult)
 
 
+def flagship_run_config() -> dict:
+    """The flagship run config as the trainer reads it after
+    ``config.derive_config``: ego_nao_res50_ego4dv2.yml with
+    ego_vis_det_ego4dv2.yml folded in, as ``flagship_config()`` mirrors them,
+    at precision 16, batch 8 for training and validation, one epoch, RAdam
+    lr 1e-4 / wd 1e-5, the bbox/obj_prop/noun/verb criterion and one
+    768x1024 resize bucket."""
+    return {
+        "experiment": "egonao", "debug": False,
+        "split": {"subset": 0},
+        "aug": {"resize_spec": [[H], [W]], "crop_spec": [1, 1], "flip": False,
+                "channel_order": "BGR"},
+        "dataset": {"name": "ego4djpgv2", "args": {"narr_structure": "{gt_narr}"}},
+        "model": {
+            "type": "res50", "train_ep": -1, "trainable_layers": 2, "representation_size": 1280,
+            "box_1_dropout": 0.0, "box_2_dropout": 0.0, "adapt_to_detectron": True,
+            "additional_postprocessing": True, "batch_norm": {"use": False, "momentum": 0.1},
+            "rcnn_kwargs": {"box_score_thresh": 0.01, "rpn_score_thresh": 0.01,
+                            "rpn_batch_size_per_image": 256, "box_batch_size_per_image": 128},
+            "ttc_hand_head": {"use": False}, "pretrained": None, "load_fpn_rpn": True,
+        },
+        "run": {
+            "seed": 42, "epochs": 1, "val_every": 1.0, "precision": 16,
+            "train_bs": B, "val_bs": B, "accumulate_grad_batches": 1, "grad_clip": None,
+            "normalization": "ego4d_baseline", "verb_bg": True, "bg_weight": 1,
+            "all_class_w": False, "class_dropout": 0.0, "replace_heads": False,
+            "freeze_backbone_at_epoch": -1,
+            "narration_embeds": {"use": True, "args": {
+                "strategy": "current", "pooling": "max", "model_v": "all-MiniLM-L12-v2",
+                "text_pooling": "sbert_finetune", "size": 384, "out_mlp": 896,
+                "out_dropout": 0.1, "out_tanh": False, "train_ep": -1, "finetune_layers": 1}},
+            "narr_fusion": {
+                "type": "cross_transformer", "narr_out_mode": "tokens", "share_encoders": False,
+                "fpn_features": [0, 1, 2, 3], "patch_h": [4, 4, 2, 1], "patch_w": [4, 4, 2, 1],
+                "backproj_dropout": 0.1, "pos_embedding": "sin1d", "forward_language_f": False,
+                "vis_mask_type": "global", "replace_fpn_features": True,
+                "args": {"input_f_size": 896, "num_layers": [4, 4, 4, 4], "num_heads": 4,
+                         "fforward_multiplier": 2, "token_dropout": 0.15, "patch_dropout": 0.1,
+                         "final_norm": "ln", "activ_f": "gelu"}},
+            "criterion": {"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "agg": "mean"},
+            "optimizer": {"name": "radam", "lr": 1e-4, "weight_decay": 1e-5},
+            "scheduler": {"use": False},
+        },
+    }
+
+
+class MemoryDataset:
+    """A split of in-memory examples already at the bucket (normalised f32
+    HWC images), in the dataset interface the trainer's loader calls."""
+
+    def __init__(self, examples: list, aug, num_nouns: int, num_verbs: int):
+        self.examples, self.aug = examples, aug
+        self.num_nouns, self.num_verbs = num_nouns, num_verbs
+
+    def __len__(self):
+        return len(self.examples)
+
+    def get_example(self, idx: int, rng, bucket, training: bool) -> dict:
+        ex = self.examples[idx]
+        assert ex["image"].shape[:2] == tuple(bucket)
+        return ex
+
+
+def trainer_data(np, seed: int = 0):
+    """A TrainerData of synthetic examples in the v2 label space (87 nouns +
+    background, 74 verbs + background), 1-2 GT boxes an image."""
+    from transfusion_torch.data.tokenizer import hash_vocab_tokenizer
+    from transfusion_torch.data.transforms import AugConfig
+    from transfusion_torch.runner.trainer import TrainerData
+    from transfusion_torch.train.losses import build_class_weights
+
+    rng = np.random.default_rng(seed)
+    nouns = {f"noun{i}": i + 1 for i in range(87)}
+    verbs = {f"verb{i}": i for i in range(74)}
+    noun_names, verb_names = list(nouns), list(verbs)
+
+    def example(uid):
+        g = int(rng.integers(1, 3))
+        xy = rng.uniform(0, 0.7, (g, 2)) * [W, H]
+        wh = rng.uniform(0.06, 0.3, (g, 2)) * [W, H]
+        n = rng.integers(0, 87, g)
+        v = rng.integers(0, 74, g)
+        return {"image": rng.normal(0, 0.7, (H, W, 3)).astype(np.float32),
+                "boxes": np.concatenate([xy, xy + wh], 1).astype(np.float32),
+                "nouns": (n + 1).astype(np.int32), "verbs": v.astype(np.int32),
+                "ttcs": np.full(g, rng.uniform(0.3, 1.8), np.float32), "id": uid,
+                "orig_shape": (H, W),
+                "narration": " and ".join(f"{verb_names[a]} {noun_names[b]}" for a, b in zip(v, n))}
+
+    aug = AugConfig(resize_spec=((H,), (W,)), crop_spec=(1, 1), flip=False)
+    train = MemoryDataset([example(f"train_{i:04d}") for i in range(TRAINER_TRAIN)], aug, 88, 75)
+    val = MemoryDataset([example(f"val_{i:04d}") for i in range(TRAINER_VAL)], aug, 88, 75)
+    noun_w, verb_w = build_class_weights(np.ones(88), np.ones(74), 1, True, False)
+    freqs = ((rng.uniform(0, 1, (88, 75)) > 0.7) * rng.integers(1, 50, (88, 75))).astype(np.float32)
+    return TrainerData(train, val, val, nouns, verbs, noun_w, verb_w, freqs, aug,
+                       hash_vocab_tokenizer(max_length=TRAINER_LANG))
+
+
+def check_trainer_shapes(torch):
+    """K1-K4 at the trainer's shapes, which 128 narration tokens make other
+    than the eval and train slices' (level 0 3,200 tokens, levels 1-3 896,
+    MiniLM 128), against their plain versions with the kernel phases'
+    tolerances."""
+    from transfusion_torch.ops import attention as at
+    from transfusion_torch.ops import layer_norm as ln
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n0, n1 = 3072 + TRAINER_LANG, 768 + TRAINER_LANG
+    for shape in ({"n": n0, "d": 896, "dtype": "bf16", "residual": True},
+                  {"n": 3072, "view": n0, "d": 896, "dtype": "bf16", "residual": False},
+                  {"n": n1, "d": 896, "dtype": "bf16", "residual": True},
+                  {"n": 768, "view": n1, "d": 896, "dtype": "bf16", "residual": False},
+                  {"n": TRAINER_LANG, "d": 384, "dtype": "bf16", "residual": True, "eps": 1e-12},
+                  {"n": TRAINER_LANG, "d": 384, "dtype": "f32", "residual": False, "eps": 1e-12}):
+        sets, w, b = ln_inputs(torch, shape, g)
+        x, r = sets[0]
+        eps = shape.get("eps", 1e-6)
+        err = max_err(ln.fused_layer_norm(x, w, b, eps, residual=r),
+                      ln.layer_norm_plain(x.contiguous(), w, b, eps, residual=r))
+        check(f"[trainer shapes] {'residual_' if r is not None else ''}layer_norm "
+              f"[{B} x {shape['n']}{' of ' + str(shape['view']) if 'view' in shape else ''}, "
+              f"{shape['d']}] {shape['dtype']}", err, 3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+    q, k, v, dout = (torch.randn(B, n0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
+                     for _ in range(4))
+    mask = torch.zeros(B, n0, dtype=torch.bool, device="cuda")
+    mask[: B // 2, -50:] = True
+    for rate in (0.0, DROPOUT):
+        out, stats = at.attention_fwd(q, k, v, mask, rate, 77, return_stats=True)
+        pairs = [("output", out, at.attention_plain(q, k, v, mask, rate, 77)[0], 2)]
+        if rate:
+            grads = zip(("dq", "dk", "dv"), at.attention_bwd(q, k, v, out, stats, dout, mask, rate, 77),
+                        at.attention_bwd_plain(q, k, v, out, stats, dout, mask, rate, 77))
+            pairs += [(name, a, b_, 4) for name, a, b_ in grads]
+        for name, a, b_, ulps in pairs:
+            check(f"[trainer shapes] attention bf16 {name} [{B}, {n0}, {HEADS}, {HEAD_DIM}] rate {rate}",
+                  max_err(a, b_), ulps * bf16_ulp(float(b_.float().abs().max())))
+            check(f"[trainer shapes] attention bf16 {name} rate {rate}",
+                  float((a.float() - b_.float()).abs().mean() / b_.float().abs().mean()), 2.0 ** -7,
+                  "mean|kernel - plain| / mean|plain|")
+    del q, k, v, dout, out, stats, pairs
+    torch.cuda.empty_cache()
+
+
+def _counted(torch, fn, kind: str, counts: dict, times: list, captured: list | None = None):
+    """``fn`` with each call's kernel launches added to ``counts[kind]`` and
+    its time (to the end of its device work) to ``times``; ``captured``
+    keeps each call's detections (its first result) on the host."""
+    from transfusion_torch.kernels import LAUNCHES
+
+    def wrapped(*args, **kwargs):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per = counts.setdefault(kind, {})
+        for k, v in LAUNCHES.items():
+            per[k] = per.get(k, 0) + v - before.get(k, 0)
+        if captured is not None:
+            captured.append({k: v.cpu().numpy() for k, v in out[0].items()})
+        return out
+
+    return wrapped
+
+
+def _bits_equal(np, a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def phase_trainer(torch, np):
+    """The trainer on the card at flagship width: fit(1) on in-memory
+    examples, then resume from its checkpoint into a fresh trainer."""
+    import shutil
+    from dataclasses import replace
+
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.transfusion import flagship_config
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+
+    t_phase = time.perf_counter()
+    check_trainer_shapes(torch)
+    run_dir = os.path.join(HERE, "chiprun_out", "trainer_run")
+    for d in (run_dir, run_dir + "_resume"):
+        shutil.rmtree(d, ignore_errors=True)
+    data = trainer_data(np)
+    cfg = flagship_run_config()
+    t0 = time.perf_counter()
+    trainer = EgoNaoTrainer(cfg, run_dir, data=data)
+    log(f"[trainer] flagship trainer built in {time.perf_counter() - t0:.1f} s; "
+        f"{len(data.train_ds)} train / {len(data.val_ds)} val examples at {H}x{W}, "
+        f"{TRAINER_LANG} tokens")
+    want = flagship_config()
+    want = replace(want, detector=replace(want.detector, stop_grad_stages=0))
+    if trainer.model_cfg != want:
+        raise AssertionError(f"build_transfusion_config(flagship_run_config()) != flagship_config(): "
+                             f"{trainer.model_cfg} vs {want}")
+    counts: dict = {}
+    train_s: list = []
+    val_s: list = []
+    dets_first: list = []
+    trainer.train_step = _counted(torch, trainer.train_step, "train", counts, train_s)
+    trainer.eval_loss_step = _counted(torch, trainer.eval_loss_step, "val", counts, val_s, dets_first)
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    history = trainer.fit(1)
+    total = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = history[0]
+    if len(train_s) != TRAINER_TRAIN // B or len(val_s) != TRAINER_VAL // B:
+        raise AssertionError(f"{len(train_s)} train steps, {len(val_s)} val batches")
+    per_step = {k: counts["train"].get(k, 0) / len(train_s) for k in EXPECTED_PER_STEP}
+    per_val = {k: counts["val"].get(k, 0) / len(val_s) for k in EXPECTED_PER_VAL_BATCH}
+    log(f"  launches per train step {per_step} (expected {EXPECTED_PER_STEP})")
+    log(f"  launches per val batch {per_val} (expected {EXPECTED_PER_VAL_BATCH})")
+    if per_step != EXPECTED_PER_STEP or per_val != EXPECTED_PER_VAL_BATCH:
+        raise AssertionError("the trainer did not launch every kernel the expected number of times")
+    losses = {k: v for k, v in rec.items() if k.endswith("loss")}
+    if not all(math.isfinite(v) for v in losses.values()) or rec["train_nonfinite_skipped"] != 0.0:
+        raise AssertionError(f"non-finite loss or a skipped step: {rec}")
+    maps = {k: v for k, v in rec.items() if k.endswith("_val")}
+    if len(maps) != 8 or not all(0.0 <= v <= 100.0 for v in maps.values()):
+        raise AssertionError(f"STA mAP out of [0, 100]: {maps}")
+    with open(os.path.join(run_dir, "results", "val_epoch0.json")) as f:
+        payload = json.load(f)
+    if not payload["challenge"].startswith("ego4d_short_term") or len(payload["results"]) != TRAINER_VAL:
+        raise AssertionError(f"result JSON: {payload['challenge']}, {len(payload['results'])} uids")
+    keys = {"box", "noun_category_id", "verb_category_id", "time_to_contact", "score"}
+    if any(set(e) != keys for entries in payload["results"].values() for e in entries):
+        raise AssertionError("result JSON entries are not in the challenge schema")
+    for f in ("history.jsonl", os.path.join("checkpoints", "best.json")):
+        if not os.path.isfile(os.path.join(run_dir, f)):
+            raise AssertionError(f"{f} not written")
+    step_s, batch_s = float(np.mean(train_s)), float(np.mean(val_s))
+    log(f"  train step seconds {[round(t, 4) for t in train_s]}, val batch seconds "
+        f"{[round(t, 4) for t in val_s]}")
+    log(f"  train {step_s:.4f} s/step ({B / step_s:.2f} frames/s), val {batch_s:.4f} s/batch "
+        f"({B / batch_s:.2f} frames/s), train_decode_s_per_batch "
+        f"{rec.get('train_decode_s_per_batch')}, train_s_per_batch {rec['train_s_per_batch']}, "
+        f"peak {peak:.2f} GiB")
+    log(f"  losses {json.dumps(losses)}; mAP {json.dumps(maps)}")
+
+    # Resume into a fresh trainer: the same state, the same evaluation.
+    ckpt = trainer.ckpt.epoch_path(0)
+    params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    opt, st = trainer.state.opt_state, trainer.state
+    moments = {m: {k: v.clone() for k, v in opt[m].items()} for m in ("mu", "nu")}
+    scalars = (opt["count"], st.step, st.seed)
+    first = {k: v for k, v in rec.items() if k.endswith("_val") or k.startswith("val_")}
+    del trainer, opt, st
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resumed = EgoNaoTrainer(cfg, run_dir + "_resume", data=data)
+    resumed.ensure_state(resume_from=ckpt)
+    log(f"  fresh trainer built and resumed in {time.perf_counter() - t0:.1f} s")
+    got, st = resumed.model.state_dict(), resumed.state
+    same = (set(got) == set(params) and all(torch.equal(got[k], v) for k, v in params.items())
+            and all(torch.equal(st.opt_state[m][k], v) for m in moments for k, v in moments[m].items())
+            and (st.opt_state["count"], st.step, st.seed) == scalars)
+    if not same:
+        raise AssertionError("the resumed trainer's parameters, moments, step or seed differ")
+    dets_resumed: list = []
+    resumed.eval_loss_step = _counted(torch, resumed.eval_loss_step, "resume", counts, [],
+                                      dets_resumed)
+    again = resumed.evaluate(0).metrics
+    if len(dets_resumed) != len(dets_first):
+        raise AssertionError(f"{len(dets_resumed)} resumed val batches, {len(dets_first)} before")
+    for a, b in zip(dets_first, dets_resumed):
+        bad = [k for k in a if not _bits_equal(np, a[k], b[k])]
+        if bad:
+            raise AssertionError(f"resumed detections differ in {bad}")
+    diff = {k: (v, again[k]) for k, v in first.items()
+            if not (v == again[k] or (math.isnan(v) and math.isnan(again[k])))}
+    if diff:
+        raise AssertionError(f"resumed evaluation differs: {diff}")
+    log("  resume: parameters, moments, step and seed equal bit for bit; detections bit for bit, "
+        "mAP and val losses equal")
+    os.remove(os.path.join(ckpt, "state.pt"))  # 2.6 GB; the run's other files stay
+    wall = time.perf_counter() - t_phase
+    log(f"  trainer phase wall time {wall:.1f} s")
+    return {"train_s_per_step": step_s, "train_frames_per_s": B / step_s, "train_step_s": train_s,
+            "val_batch_s": val_s, "val_s_per_batch": batch_s, "val_frames_per_s": B / batch_s, "peak_gib": peak,
+            "history": rec, "launches": total, "launches_train": counts["train"],
+            "launches_val": counts["val"], "phase_s": wall}
+
+
 def phase_profile(torch, model, cfg, batch, freqs):
     """Where a request's time goes: each stage of the forward timed on the
     host clock between synchronisations (so stages do not overlap), then one
@@ -1097,6 +1398,9 @@ def main() -> int:
     train_rec, train_step = phase_train_slice(torch, np, model, cfg, batch)
     if "--profile" in sys.argv[1:]:
         train_rec["profile"] = _trace(torch, "train step", train_step)
+    del model, slice_state, train_step
+    torch.cuda.empty_cache()
+    trainer_rec = phase_trainer(torch, np)
 
     rows, records = [], []
     for r in results:
@@ -1109,6 +1413,7 @@ def main() -> int:
         })
         # The record adds the share of the bound reached and, for the products, TFLOP/s.
         records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
+                        "trainer_launches": trainer_rec["launches"].get(r["name"], 0),
                         **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
                         **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms", "shapes") if k in r}})
         log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
@@ -1120,7 +1425,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
-                   "train": train_rec, "ptxas": ptxas,
+                   "train": train_rec, "trainer": trainer_rec, "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(smi)

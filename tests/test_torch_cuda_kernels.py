@@ -506,3 +506,26 @@ def test_roi_align_autograd_round_trip(card):
     (ra.roi_align_plain(packed, params) * w).sum().backward()
     for k, t in feats.items():
         assert _err(got[k], t.grad) <= 1e-5 * float(t.grad.abs().max()), k
+
+
+# --------------------------------------- model build: head dims the kernels take
+def test_model_with_an_unsupported_head_dim_fails_at_build(card):
+    """A bf16 model whose fusion head dim the attention kernels are not
+    compiled for raises in TransFusion.__init__, not in a step; turning
+    flash attention off builds it."""
+    from dataclasses import replace
+
+    from transfusion_torch.models.detector import DetectorConfig
+    from transfusion_torch.models.transfusion import FusionConfig, TransFusion, TransFusionConfig
+    from transfusion_torch.models.text_encoder import BertConfig
+
+    cfg = TransFusionConfig(
+        detector=DetectorConfig(stage_sizes=(1, 1, 1, 1), dtype=torch.bfloat16),
+        fusion=FusionConfig(fpn_features=(3,), patch_h=(1,), patch_w=(1,), num_layers=(1,),
+                            token_dim=64, num_heads=2, use_flash_attention=True),
+        bert=BertConfig(vocab_size=64, hidden_size=16, num_layers=1, num_heads=2,
+                        intermediate_size=32, max_position_embeddings=16),
+        out_mlp=64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        TransFusion(cfg, device=card)
+    TransFusion(replace(cfg, fusion=replace(cfg.fusion, use_flash_attention=False)), device=card)

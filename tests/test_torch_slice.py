@@ -32,8 +32,8 @@ def _port_cfg():
     return TransFusionConfig(
         detector=DetectorConfig(
             roi=RoIConfig(num_nouns=7, num_verbs=5, representation_size=64,
-                          detections_per_img=10, score_thresh=0.01, ttc_on=True,
-                          additional_postprocessing=True),
+                          batch_size_per_image=16, detections_per_img=10, score_thresh=0.01,
+                          ttc_on=True, additional_postprocessing=True),
             rpn=RPNConfig(pre_nms_top_n_test=64, post_nms_top_n_test=32, score_thresh=0.01),
             stage_sizes=(1, 1, 1, 1),
         ),

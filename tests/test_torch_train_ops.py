@@ -26,6 +26,7 @@ from transfusion_tpu.ops import attention as j_attn
 from transfusion_tpu.ops import matcher as j_match
 from transfusion_tpu.ops import roi_align as j_roi
 from transfusion_tpu.train import losses as j_loss
+from tests.test_torch_ops import warm_torch_exp  # noqa: F401  (autouse: see its docstring)
 
 
 def _t(x, dtype=None):
@@ -337,22 +338,22 @@ def _nest(flat):
     return tree
 
 
-def test_radam_chain_matches_optax_over_seven_steps():
-    """make_optimizer(radam, weight decay, global-norm clip, sep_encoders LR
-    groups, a multistep schedule) against optax over 7 steps: RAdam's
-    unrectified branch (rho < 5, steps 1-5) and its rectified one, clipping
-    on some steps and not others, two learning-rate drops."""
+def _seven_steps(cfg, sched, accumulate=1, freeze=None):
+    """make_optimizer(cfg, sched, clip 1.0, ...) of both packages over the
+    same 7 gradient draws; checks the schedule and every parameter after each
+    step (rtol 1e-5, atol 1e-6: the same float32 arithmetic) and returns
+    (how many steps were clipped, the port's final state)."""
     from transfusion_torch.train.optim import make_optimizer as t_make, param_group_label
     from transfusion_tpu.train.optim import make_optimizer as j_make, param_group_label as j_label
 
     rng = np.random.default_rng(14)
     shapes = [(6, 5), (4, 3), (3, 1), (7,), (2, 8)]
     init = {path: rng.normal(0, 1, shp).astype(np.float32) for path, shp in zip(_OPT_NAMES, shapes)}
-    cfg = {"name": "radam", "lr": 2e-3, "weight_decay": 1e-2,
-           "sep_encoders": {"div_rate": 4, "ttc_rate": 10}}
-    sched = {"use": True, "name": "multistep", "milestones": [1, 2], "gamma": 0.3}
-    j_tx, j_sched = j_make(cfg, sched, steps_per_epoch=2, grad_clip=1.0)
-    t_tx, t_sched = t_make(cfg, sched, steps_per_epoch=2, grad_clip=1.0)
+    j_mask = None if freeze is None else _nest({p: freeze[n] for p, n in _OPT_NAMES.items()})
+    j_tx, j_sched = j_make(cfg, sched, steps_per_epoch=2, grad_clip=1.0, accumulate=accumulate,
+                           freeze_mask=j_mask)
+    t_tx, t_sched = t_make(cfg, sched, steps_per_epoch=2, grad_clip=1.0, accumulate=accumulate,
+                           freeze_mask=freeze)
     for path, name in _OPT_NAMES.items():
         flat = jax.tree_util.tree_flatten_with_path(_nest({path: 0}))[0][0][0]
         assert param_group_label(name) == j_label(flat)
@@ -375,10 +376,49 @@ def test_radam_chain_matches_optax_over_seven_steps():
         np.testing.assert_allclose(float(t_sched(step)), float(j_sched(step)), rtol=1e-7)
         want = {p: np.asarray(x) for p, x in jax.tree_util.tree_flatten_with_path(j_params)[0]}
         for path, leaf in want.items():
-            name = _OPT_NAMES[tuple(k.key for k in path)]
+            path = tuple(k.key for k in path)
+            name = _OPT_NAMES[path]
             np.testing.assert_allclose(t_params[name].numpy(), leaf, rtol=1e-5, atol=1e-6,
                                        err_msg=f"step {step} {name}")
+            if freeze is not None and freeze[name] == "frozen":
+                np.testing.assert_array_equal(t_params[name].numpy(), init[path])
+    return clipped, t_state
+
+
+_RADAM = {"name": "radam", "lr": 2e-3, "weight_decay": 1e-2,
+          "sep_encoders": {"div_rate": 4, "ttc_rate": 10}}
+_MULTISTEP = {"use": True, "name": "multistep", "milestones": [1, 2], "gamma": 0.3}
+
+
+def test_radam_chain_matches_optax_over_seven_steps():
+    """make_optimizer(radam, weight decay, global-norm clip, sep_encoders LR
+    groups, a multistep schedule) against optax over 7 steps: RAdam's
+    unrectified branch (rho < 5, steps 1-5) and its rectified one, clipping
+    on some steps and not others, two learning-rate drops."""
+    clipped, t_state = _seven_steps(_RADAM, _MULTISTEP)
     assert 0 < clipped < 7 and t_state["count"] == 7
+
+
+@pytest.mark.parametrize("case", ["adam", "adamw", "adamw-no-decay", "sgd", "sgd-no-decay",
+                                  "rmsprop", "radam-accumulate-3", "adam-freeze-mask"])
+def test_optimizers_match_optax_over_seven_steps(case):
+    """The other optimizers of make_optimizer, gradient accumulation
+    (optax.MultiSteps: the inner chain steps on calls 3 and 6) and a freeze
+    mask (optax.multi_transform with set_to_zero: frozen parameters stay
+    bit for bit, clipping sees the trained ones only), against optax over
+    the same 7 steps as the RAdam test above."""
+    name = case.split("-")[0]
+    cfg = {**_RADAM, "name": name, "momentum": 0.8}
+    if case.endswith("no-decay"):
+        cfg["weight_decay"] = 0.0
+    accumulate = 3 if "accumulate" in case else 1
+    freeze = None
+    if "freeze" in case:
+        freeze = {n: "frozen" if i % 2 else "train" for i, n in enumerate(_OPT_NAMES.values())}
+    _, t_state = _seven_steps(cfg, _MULTISTEP, accumulate, freeze)
+    if accumulate > 1:
+        assert t_state["gradient_step"] == 2 and t_state["mini_step"] == 1
+        assert t_state["inner"]["count"] == 2
 
 
 @pytest.mark.parametrize("sched", [

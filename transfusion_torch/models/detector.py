@@ -88,19 +88,23 @@ class FasterRCNN(nn.Module):
         return self.backbone.fpn(feats)
 
     def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
-                      draws=None, generator=None, rng=None):
-        """RPN + RoI heads over FPN maps. Eval: every proposal. ``train``:
+                      draws=None, generator=None, rng=None, sample: bool | None = None):
+        """RPN + RoI heads over FPN maps. Eval: every proposal. ``train``
+        keeps the training proposal counts; ``sample`` (default: ``train``):
         targets {boxes [B, G, 4], nouns, verbs, ttcs, valid [B, G]} are
         assigned and S RoIs an image sampled with ``draws`` (positive and
         negative uniform keys [B, P + G]), drawn from ``generator`` when not
-        given; ``rng`` (a DropoutRNG) feeds the RoI dropouts in training
-        mode. Returns {"roi_outputs", "proposals", "image_sizes"}; in
-        training roi_outputs also carries labels (nouns, verbs, ttcs) and
-        reg_targets, and proposals the anchor labels and matches."""
+        given, so validation losses can sample on an eval forward; ``rng`` (a
+        DropoutRNG) feeds the RoI dropouts in training mode. Returns
+        {"roi_outputs", "proposals", "image_sizes"}; when sampling
+        roi_outputs also carries labels (nouns, verbs, ttcs) and reg_targets,
+        and proposals the anchor labels and matches."""
+        if sample is None:
+            sample = train
         objectness, deltas = self.rpn.head(fpn_feats)
         rpn_out = generate_proposals(objectness, deltas, image_hw, self.cfg.rpn, train)
         sampled = None
-        if train:
+        if sample:
             dev = self.device
             targets = {k: v.to(dev) for k, v in targets.items()}
             rpn_out["labels"], rpn_out["matches"] = assign_targets_to_anchors(

@@ -1,7 +1,8 @@
 """The TransFusion model: Faster R-CNN + narration encoder + per-level
 fusion (port of ``transfusion_tpu/models/transfusion.py``: the
 ``cross_transformer`` fusion with the ``sbert`` text encoder in ``tokens``
-mode and no LM head, the flagship's path, for eval and training).
+mode and no LM head, the flagship's path, for eval, validation with losses
+and training), and ``build_transfusion_config`` from a derived run config.
 
 ``TransFusion`` subclasses :class:`FasterRCNN` so its state dict has the
 reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
@@ -12,6 +13,8 @@ the JAX batch contract: ``image [B, H, W, 3]``, ``input_ids``,
 ``forward(batch, train=True)`` assigns targets and samples RoIs; dropout
 follows the module's ``.train()`` / ``.eval()`` mode and draws from the
 ``rng`` (a ``text_encoder.DropoutRNG``) the train step passes.
+``eval_with_losses`` runs the trunk once and two RoI branches on it: every
+proposal for the detections, and sampled RoIs for the validation losses.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from transfusion_torch.models.resnet import RESNET50_CHANNELS
 from transfusion_torch.models.roi_heads import RoIConfig
 from transfusion_torch.models.rpn import RPNConfig
 from transfusion_torch.models.text_encoder import BertConfig, NarrationEncoder
+from transfusion_torch.ops.attention import BF16_HEAD_DIMS
 
 
 @dataclass(frozen=True)
@@ -81,6 +85,112 @@ def flagship_config() -> TransFusionConfig:
     )
 
 
+def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
+                             dtype=torch.float32) -> TransFusionConfig:
+    """Map a derived reference-format config dict (see ``config.derive``)
+    onto TransFusionConfig, as ``transfusion_tpu/models/transfusion.py:468``
+    does, for the options the port builds: a ResNet-50 family trunk with
+    frozen BN and the plain stem, the ``cross_transformer`` fusion with
+    sin1d positions, LayerNorm, GELU, replaced FPN maps and no language
+    forwarding, the sbert/MiniLM text tower in tokens mode, and the linear
+    TTC head. Every other option raises NotImplementedError naming it.
+    Flash attention is on unless the fusion args turn it off, as in JAX."""
+    run, model = config["run"], config["model"]
+    rcnn_kwargs = model.get("rcnn_kwargs", {})
+    narr = run["narration_embeds"]
+    narr_args = narr["args"]
+    fusion_cfg = run["narr_fusion"]
+    fargs = fusion_cfg.get("args", {})
+    criterion = run["criterion"]
+    bn = model.get("batch_norm") or {}
+    text_pooling = narr_args.get("text_pooling", "sbert_finetune")
+    model_v = narr_args.get("model_v", "all-MiniLM-L12-v2")
+    unported = [
+        ("model.type", model.get("type", "res50"), "res50"),
+        ("model.batch_norm.use", bool(bn.get("use", False)), False),
+        ("model.s2d_stem", bool(model.get("s2d_stem", False)), False),
+        ("model.ttc_hand_head.use",
+         bool(criterion.get("ttc", 0) and (model.get("ttc_hand_head") or {}).get("use")), False),
+        ("run.criterion.lm", bool(criterion.get("lm", 0)), False),
+        ("run.narration_embeds.use", bool(narr.get("use", True)), True),
+        ("run.narration_embeds.res50_f / slowfast_f_v",
+         bool(narr.get("res50_f", False) or narr.get("slowfast_f_v", False)), False),
+        ("narration_embeds.args.pooling", narr_args.get("pooling") == "sbert", False),
+        ("narration_embeds.args.text_pooling", text_pooling, "sbert_finetune"),
+        ("narration_embeds.args.model_v",
+         model_v.startswith(("t5-", "flan-t5-")) or model_v == "distilgpt2", False),
+        ("narration_embeds.args.out_tanh", bool(narr_args.get("out_tanh", False)), False),
+        ("narration_embeds.args.type_embeddings", tuple(narr_args.get("type_embeddings") or ()), ()),
+        ("narr_fusion.type", fusion_cfg.get("type", "cross_transformer"), "cross_transformer"),
+        ("narr_fusion.narr_out_mode", fusion_cfg.get("narr_out_mode", "tokens"), "tokens"),
+        ("narr_fusion.share_encoders", bool(fusion_cfg.get("share_encoders", False)), False),
+        ("narr_fusion.pos_embedding", fusion_cfg.get("pos_embedding", "sin1d"), "sin1d"),
+        ("narr_fusion.forward_language_f", fusion_cfg.get("forward_language_f", False), False),
+        ("narr_fusion.replace_fpn_features", fusion_cfg.get("replace_fpn_features", True), True),
+        ("narr_fusion.args.final_norm", fargs.get("final_norm", "ln"), "ln"),
+        ("narr_fusion.args.activ_f", fargs.get("activ_f", "gelu"), "gelu"),
+    ]
+    for option, value, supported in unported:
+        if value != supported:
+            raise NotImplementedError(f"{option}={value!r} is not ported yet")
+    bert = BertConfig.minilm_l12()
+    if model_v == "minilm-tiny":
+        bert = BertConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
+    elif "L6" in model_v:
+        bert = BertConfig(num_layers=6)
+    roi = RoIConfig(
+        num_nouns=num_nouns,
+        num_verbs=num_verbs,
+        representation_size=model["representation_size"],
+        batch_size_per_image=rcnn_kwargs.get("box_batch_size_per_image", 512),
+        score_thresh=rcnn_kwargs.get("box_score_thresh", 0.05),
+        box_1_dropout=model.get("box_1_dropout", 0.0),
+        box_2_dropout=model.get("box_2_dropout", 0.0),
+        classif_dropout=run.get("class_dropout", 0.0),
+        ttc_on=bool(criterion.get("ttc", 0)),
+        additional_postprocessing=model.get("additional_postprocessing", False),
+    )
+    det = DetectorConfig(
+        roi=roi,
+        rpn=RPNConfig(score_thresh=rcnn_kwargs.get("rpn_score_thresh", 0.0)),
+        stride_in_1x1=model.get("adapt_to_detectron", False),
+        stage_sizes=tuple(model.get("stage_sizes", (3, 4, 6, 3))),
+        dtype=dtype,
+    )
+    fus = FusionConfig(
+        fpn_features=tuple(fusion_cfg.get("fpn_features", (0, 1, 2, 3))),
+        patch_h=tuple(fusion_cfg.get("patch_h", (4, 4, 2, 1))),
+        patch_w=tuple(fusion_cfg.get("patch_w", (4, 4, 2, 1))),
+        num_layers=tuple(fargs.get("num_layers", (4, 4, 4, 4))),
+        token_dim=fargs.get("input_f_size", 896),
+        num_heads=fargs.get("num_heads", 4),
+        ff_multiplier=fargs.get("fforward_multiplier", 2),
+        token_dropout=fargs.get("token_dropout", 0.1),
+        patch_dropout=fargs.get("patch_dropout", 0.1),
+        backproj_dropout=fusion_cfg.get("backproj_dropout", 0.1),
+        vis_mask_type=fusion_cfg.get("vis_mask_type", "global"),
+        use_flash_attention=bool(fargs.get("use_flash_attention", True)),
+    )
+    return TransFusionConfig(detector=det, fusion=fus, bert=bert,
+                             out_mlp=narr_args.get("out_mlp"),
+                             out_dropout=narr_args.get("out_dropout", 0.1), dtype=dtype)
+
+
+def check_attention_head_dim(cfg: TransFusionConfig, device) -> None:
+    """On CUDA, the fusion's attention kernels (K2-K4) are compiled for bf16
+    head dims ``BF16_HEAD_DIMS`` and f32 head dims up to 256: a model whose
+    head dim they do not take fails here, when it is built, not in a step."""
+    f = cfg.fusion
+    if torch.device(device).type != "cuda" or not f.use_flash_attention:
+        return
+    d = f.token_dim // f.num_heads
+    ok = d in BF16_HEAD_DIMS if cfg.dtype == torch.bfloat16 else d <= 256
+    if not ok:
+        raise ValueError(f"fusion head dim {f.token_dim} / {f.num_heads} = {d} is not one the "
+                         f"{cfg.dtype} attention kernels take (bf16 {BF16_HEAD_DIMS}, f32 <= 256); "
+                         "set narr_fusion.args.use_flash_attention: False")
+
+
 class TransFusion(FasterRCNN):
     """Entry point: built on ``device`` (``cuda`` unless named; raises when
     CUDA is missing). Weights start as PyTorch's default init: load a state
@@ -94,6 +204,7 @@ class TransFusion(FasterRCNN):
             raise NotImplementedError("only the sbert text encoder in tokens mode is ported")
         if cfg.lm_on:
             raise NotImplementedError("the LM auxiliary head is not ported yet")
+        check_attention_head_dim(cfg, dev)
         super().__init__(cfg.detector, device=dev)
         self.tcfg = cfg
         f, dt = cfg.fusion, cfg.dtype
@@ -133,3 +244,14 @@ class TransFusion(FasterRCNN):
         and ``rng``)."""
         return self.apply_rpn_roi(self.trunk(batch, rng), batch["image_hw"], batch.get("targets"),
                                   train, draws, generator, rng)
+
+    def eval_with_losses(self, batch: dict, draws=None, generator=None):
+        """One eval forward giving {"eval": every proposal's RoI outputs, for
+        the detections; "loss": the same trunk's RPN labels and sampled RoIs
+        (``draws`` / ``generator`` as in ``apply_rpn_roi``), for the
+        validation losses}. Dropout stays off (eval mode)."""
+        fpn_feats = self.trunk(batch)
+        hw = batch["image_hw"]
+        return {"eval": self.apply_rpn_roi(fpn_feats, hw),
+                "loss": self.apply_rpn_roi(fpn_feats, hw, batch["targets"], draws=draws,
+                                           generator=generator, sample=True)}

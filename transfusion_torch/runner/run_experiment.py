@@ -1,0 +1,114 @@
+"""Config-driven experiment launcher (CLI; port of
+``transfusion_tpu/runner/run_experiment.py``):
+
+    python -m transfusion_torch.runner.run_experiment \
+        --config $CODE/runner/nao/configs/ego_nao_res50_ego4dv2.yml \
+        [--debug] [--run-val] [--run-test] [--resume-from PATH] [--epochs N] \
+        [--run-dir DIR] [--device cuda|cpu]
+
+The reference YAMLs run unmodified (``${CODE}``/``${DATA}``/``${RUNS}``
+interpolation included); the JSONL history and the challenge JSONs in the
+run directory are the record. It runs on one device, ``cuda`` unless
+``--device`` names another. The multi-device flags (``--devices``,
+``--mesh-model``, ``--mesh-fsdp``, ``--distributed``) and the wandb ones are
+accepted as in the JAX CLI and raise NotImplementedError when set.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import time
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Run experiments.")
+    p.add_argument("--config", type=str, required=True, help="run config YAML")
+    p.add_argument("--debug", action="store_true", default=False,
+                   help="reduced samples + small batch end-to-end check")
+    p.add_argument("--resume-from", type=str, default="", help="checkpoint directory")
+    p.add_argument("--run-test", action="store_true", default=False)
+    p.add_argument("--run-val", action="store_true", default=False)
+    p.add_argument("--epochs", type=int, default=None, help="override run.epochs")
+    p.add_argument("--run-dir", type=str, default=None,
+                   help="output directory (default: $RUNS/<experiment>/<timestamp>)")
+    p.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
+    # Not ported yet: each raises NotImplementedError when set.
+    p.add_argument("--devices", type=int, default=None)
+    p.add_argument("--skip-ssl-verification", action="store_true", default=False)
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--mesh-fsdp", action="store_true", default=False)
+    p.add_argument("--do-not-log-checkpoints", action="store_true", default=False)
+    p.add_argument("--distributed", action="store_true", default=False)
+    p.add_argument("--wandb-entity", default=None)
+    p.add_argument("--wandb-project", default=None)
+    return p
+
+
+_UNPORTED = (("devices", None), ("skip_ssl_verification", False), ("mesh_model", 1),
+             ("mesh_fsdp", False), ("do_not_log_checkpoints", False), ("distributed", False),
+             ("wandb_entity", None), ("wandb_project", None))
+
+
+def make_run_dir(experiment: str, override: str | None) -> str:
+    if override:
+        os.makedirs(override, exist_ok=True)
+        return override
+    base = os.path.expandvars("$RUNS") if os.environ.get("RUNS") else "runs"
+    run_dir = os.path.join(base, experiment, time.strftime("%Y%m%d_%H%M%S"))
+    os.makedirs(run_dir, exist_ok=True)
+    return run_dir
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    for name, default in _UNPORTED:
+        if getattr(args, name) != default:
+            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet")
+    if args.resume_from and not os.path.isdir(args.resume_from):
+        raise NotImplementedError(f"--resume-from {args.resume_from!r}: only a checkpoint "
+                                  "directory is ported (not a wandb run reference)")
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+
+    from transfusion_torch.config import derive_config, load_config
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+
+    config = load_config(args.config)
+    if config.get("experiment") != "egonao":
+        raise NotImplementedError(f"experiment {config.get('experiment')!r} (only egonao is wired)")
+    config = derive_config(config, {"debug": args.debug, "resume_from": args.resume_from})
+    if args.run_test:
+        config["run"]["run_test"] = True
+    if args.run_val:
+        config["run"]["run_val"] = True
+
+    run_dir = make_run_dir(config["experiment"], args.run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as fp:
+        json.dump(dict(config), fp, default=str, indent=1)
+    # ${run_dir}/run.log mirrors everything the root logger emits.
+    fh = logging.FileHandler(os.path.join(run_dir, "run.log"))
+    fh.setFormatter(logging.Formatter("%(asctime)s %(name)s %(message)s"))
+    logging.getLogger().addHandler(fh)
+    logging.info("run dir: %s", run_dir)
+
+    trainer = EgoNaoTrainer(config, run_dir, debug=config["debug"], device=args.device)
+    resume = args.resume_from or None
+    try:
+        if config["run"].get("run_test") or config["run"].get("run_val"):
+            trainer.ensure_state(resume)
+            test = bool(config["run"].get("run_test"))
+            result = trainer.evaluate(0, dataset=trainer.test_ds if test else None,
+                                      source="test" if test else "val")
+            print(json.dumps(result.metrics, indent=1))
+        else:
+            history = trainer.fit(epochs=args.epochs, resume_from=resume)
+            print(json.dumps(history[-1] if history else {}, indent=1))
+    finally:
+        logging.getLogger().removeHandler(fh)
+        fh.close()
+
+
+if __name__ == "__main__":
+    main()

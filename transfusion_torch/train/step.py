@@ -1,7 +1,8 @@
-"""The train step (port of ``transfusion_tpu/train/step.py:35-253``):
+"""The train and eval steps (port of ``transfusion_tpu/train/step.py``):
 forward with target assignment and RoI sampling, the 6-slot criterion of the
-reference trainer, backward, the RAdam chain of :mod:`.optim`, and the epoch
-freeze multipliers, with the non-finite guard.
+reference trainer, backward, the optimizer chain of :mod:`.optim`, and the
+epoch freeze multipliers, with the non-finite guard; the eval step (forward
+and postprocess) and the eval step with validation losses.
 
 Mixed precision: parameters stay f32 and every module casts them to the
 compute dtype at use (bf16 on the flagship). Autograd therefore forms each
@@ -16,7 +17,9 @@ key, so a resumed run replays its steps: the RoI and RPN samplers take
 uniform keys (``draws``) from an explicit ``torch.Generator`` seeded by
 (seed, step) unless the caller passes them, as the parity tests pass JAX's;
 dropout draws from the step's ``DropoutRNG`` (keep masks on the model's
-device, attention-kernel seeds from a CPU generator).
+device, attention-kernel seeds from a CPU generator). The eval step with
+losses samples from fixed generators (seeds 0 and 1, as JAX's ``key(0)`` and
+``key(1)``), so every call draws the same keys.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from transfusion_torch.models.detector import detections_from_outputs
 from transfusion_torch.models.text_encoder import DropoutRNG
 from transfusion_torch.ops.matcher import uniform_draws
 from transfusion_torch.train import losses as L
@@ -172,5 +176,59 @@ def make_train_step(model, tx, loss_cfg: LossConfig, noun_w, verb_w):
         state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
                 "nonfinite_skipped": 0.0 if good else 1.0}
+
+    return step_fn
+
+
+def _freqs(noun_verb_frequencies, device):
+    if noun_verb_frequencies is None:
+        return None
+    return torch.as_tensor(noun_verb_frequencies, dtype=torch.float32, device=device)
+
+
+def make_eval_step(model, detector_cfg, noun_verb_frequencies=None):
+    """Returns ``step_fn(batch) -> detections``: the eval forward and the
+    postprocess, fixed-shape detections [B, K, ...] on the model's device."""
+    freqs = _freqs(noun_verb_frequencies, model.device)
+
+    @torch.no_grad()
+    def step_fn(batch):
+        model.eval()
+        return detections_from_outputs(model(batch), detector_cfg, noun_verb_frequencies=freqs)
+
+    return step_fn
+
+
+def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_w,
+                        noun_verb_frequencies=None):
+    """Returns ``step_fn(batch, loss_w, draws=None) -> (detections, metrics)``
+    from one trunk (``TransFusion.eval_with_losses``): the detections of
+    every proposal, and the losses of the sampled branch with ``metrics
+    ["loss"]`` the validation total over [bbox, noun, verb, ttc, lm] (the
+    RPN slot is logged, not summed) under the normalised 5-slot ``loss_w``.
+    The RoI and RPN samplers draw from generators seeded 0 and 1 on every
+    call unless ``draws`` ({"roi", "rpn"}, as ``make_train_step``) are
+    given."""
+    dev = model.device
+    freqs = _freqs(noun_verb_frequencies, dev)
+    noun_w, verb_w = torch.as_tensor(noun_w, device=dev), torch.as_tensor(verb_w, device=dev)
+
+    @torch.no_grad()
+    def step_fn(batch, loss_w, draws=None):
+        model.eval()
+        draws = draws or {}
+        outputs = model.eval_with_losses(batch, draws.get("roi"),
+                                         torch.Generator(device=dev).manual_seed(0))
+        dets = detections_from_outputs(outputs["eval"], detector_cfg, noun_verb_frequencies=freqs)
+        rpn_draws = draws.get("rpn")
+        if rpn_draws is None:
+            rpn_draws = uniform_draws(outputs["loss"]["proposals"]["objectness"].shape,
+                                      torch.Generator(device=dev).manual_seed(1))
+        stacked, metrics = compute_losses(outputs["loss"], batch, loss_cfg, noun_w, verb_w,
+                                          rpn_draws)
+        val = stacked[torch.tensor([0, 2, 3, 4, 5], device=dev)]
+        lw = torch.as_tensor(loss_w, dtype=torch.float32, device=dev)
+        total = (val * lw).sum() if loss_cfg.agg_mean else val.sum()
+        return dets, {"loss": total, **metrics}
 
     return step_fn

@@ -155,6 +155,22 @@ def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
 
 
+def strip_wrapper_prefixes(state_dict: dict) -> dict:
+    """A reference checkpoint's names -> the port's (rcnn_factory.py:86-92
+    key surgery plus the lightning 'model.' prefix; a copy of
+    ``transfusion_tpu/tools/translate_checkpoint.py::strip_wrapper_prefixes``)."""
+    out = {}
+    for k, v in state_dict.items():
+        k = k.replace("model.rcnn_model.rcnn_to_wrap.", "")
+        k = k.replace("model.rcnn_model.", "")
+        if k.startswith("model."):
+            k = k[len("model."):]
+        k = k.replace("rpn.rpn_wrap.", "rpn.")
+        k = k.replace("roi_heads.roi_head_wrap.", "roi_heads.")
+        out[k] = v
+    return out
+
+
 def _find_adam_state(node):
     """The ScaleByAdamState (count, mu, nu) inside an optax state tree."""
     if all(hasattr(node, a) for a in ("count", "mu", "nu")):
