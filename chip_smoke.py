@@ -80,9 +80,12 @@ BF16_TC_FLOPS = 989e12     # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
 EXPECTED_PER_FORWARD = {"layer_norm": 5, "residual_layer_norm": 56, "attention_fwd": 4,
                         "roi_align_fwd": 1}
+# The train forward runs the eval forward's 61 LayerNorms on K1 (fusion:
+# 4 final norms and 32 residual norms; MiniLM: the embeddings norm and 24
+# residual norms); their backward is layer_norm's closed form, no kernel.
 EXPECTED_PER_STEP = {"attention_fwd_dropout": 4, "attention_bwd_dq": 4, "attention_bwd_dkv": 4,
-                     "roi_align_fwd": 1, "roi_align_bwd": 1, "layer_norm": 0,
-                     "residual_layer_norm": 0, "attention_fwd": 0}
+                     "roi_align_fwd": 1, "roi_align_bwd": 1, "layer_norm": 5,
+                     "residual_layer_norm": 56, "attention_fwd": 0}
 TRAIN_KERNELS = ("attention_fwd_dropout", "attention_bwd_dq", "attention_bwd_dkv", "roi_align_bwd")
 REPLACES = {
     "layer_norm": "transfusion_tpu/ops/layer_norm.py:55",
@@ -799,7 +802,7 @@ def phase_small_reference(torch):
 
 
 def phase_small_train_reference(torch):
-    """One tiny f32 train step on the card (kernels K2-K6) against the same
+    """One tiny f32 train step on the card (kernels K1-K6) against the same
     step on the CPU (plain versions): the same weights, batch, sampler draws
     and optimizer, dropout off. Losses agree to 1e-4 relative; every
     parameter's update to 1e-3 of the tensor's largest update (or two f32
@@ -845,7 +848,8 @@ def phase_small_train_reference(torch):
         torch.cuda.synchronize()
         if name == "card":
             launches = dict(LAUNCHES)
-    need = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "roi_align_fwd", "roi_align_bwd")
+    need = ("attention_fwd", "attention_bwd_dq", "attention_bwd_dkv", "roi_align_fwd", "roi_align_bwd",
+            "layer_norm", "residual_layer_norm")
     log(f"[small train reference] launches on the card: {launches}")
     if any(launches.get(k, 0) < 1 for k in need):
         raise AssertionError(f"the tiny train step did not take every kernel: {launches}")
@@ -1108,9 +1112,25 @@ def check_trainer_shapes(torch):
         eps = shape.get("eps", 1e-6)
         err = max_err(ln.fused_layer_norm(x, w, b, eps, residual=r),
                       ln.layer_norm_plain(x.contiguous(), w, b, eps, residual=r))
-        check(f"[trainer shapes] {'residual_' if r is not None else ''}layer_norm "
-              f"[{B} x {shape['n']}{' of ' + str(shape['view']) if 'view' in shape else ''}, "
-              f"{shape['d']}] {shape['dtype']}", err, 3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+        label = (f"{'residual_' if r is not None else ''}layer_norm "
+                 f"[{B} x {shape['n']}{' of ' + str(shape['view']) if 'view' in shape else ''}, "
+                 f"{shape['d']}] {shape['dtype']}")
+        check(f"[trainer shapes] {label}", err, 3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+        # The train step's backward: layer_norm (K1 forward, closed-form
+        # gradient) against autograd through the plain version, each
+        # gradient relative to its largest entry; dx is rounded to the input
+        # dtype (two bf16 ulps), dweight and dbias sum every row in f32.
+        cot = torch.randn(x.shape, device="cuda", generator=g).to(x.dtype)
+        grads = []
+        for fn in (ln.layer_norm, ln.layer_norm_plain):
+            ins = [t.detach().requires_grad_() for t in (x, w, b) + ((r,) if r is not None else ())]
+            fn(ins[0], ins[1], ins[2], eps, ins[3] if r is not None else None).backward(cot)
+            grads.append([t.grad for t in ins])
+        for name, a, b_ in zip(("dx", "dweight", "dbias", "dresidual"), *grads):
+            rel = max_err(a, b_) / float(b_.float().abs().max())
+            check(f"[trainer shapes] {label} {name}", rel,
+                  2 ** -7 if name in ("dx", "dresidual") and shape["dtype"] == "bf16" else 1e-4,
+                  "max|layer_norm - plain autograd| / max|plain|")
     q, k, v, dout = (torch.randn(B, n0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
                      for _ in range(4))
     mask = torch.zeros(B, n0, dtype=torch.bool, device="cuda")

@@ -53,10 +53,13 @@ def _jax_draws(model, params, n_roi: int, n_anchor: int, bsz: int):
 
 def test_eval_loss_step_matches_jax(golden):  # noqa: F811
     """One JAX make_eval_loss_step against the port's: detections slot by
-    slot, the validation total and every per-term loss."""
+    slot, the validation total and every per-term loss; the port's
+    make_eval_step gives the same detections, apply_rpn_roi(sample=True)
+    the same loss branch."""
     from transfusion_torch.train.losses import build_class_weights as t_weights
     from transfusion_torch.train.step import LossConfig as TLoss
     from transfusion_torch.train.step import make_eval_loss_step as t_step
+    from transfusion_torch.train.step import make_eval_step as t_eval_step
     from transfusion_torch.train.step import normalized_criterion_weights
     from transfusion_tpu.train.losses import build_class_weights as j_weights
     from transfusion_tpu.train.step import LossConfig as JLoss
@@ -106,6 +109,22 @@ def test_eval_loss_step_matches_jax(golden):  # noqa: F811
         assert torch.equal(first[key], again[key]), key
     for key in first_dets:
         assert torch.equal(first_dets[key], again_dets[key]), key
+    # make_eval_step: the eval forward alone gives the same detections bit
+    # for bit (its proposals are the eval branch's).
+    eval_dets = t_eval_step(port, _port_cfg().detector, noun_verb_frequencies=FREQS)(golden["tbatch"])
+    assert set(eval_dets) == set(dets)
+    for key in dets:
+        assert torch.equal(eval_dets[key], dets[key]), key
+    # The loss branch, which takes the eval branch's proposals, equals
+    # apply_rpn_roi(sample=True) on the same trunk bit for bit.
+    with torch.no_grad():
+        branch = port.eval_with_losses(tbatch, draws=draws["roi"])["loss"]
+        whole = port.apply_rpn_roi(port.trunk(tbatch), tbatch["image_hw"], tbatch["targets"],
+                                   draws=draws["roi"], sample=True)
+    flat = lambda out: torch.utils._pytree.tree_flatten(out)[0]  # noqa: E731
+    assert len(flat(branch)) == len(flat(whole))
+    for a, b in zip(flat(branch), flat(whole)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def _sta_case(seed: int):

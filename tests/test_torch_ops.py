@@ -7,6 +7,7 @@ import ast
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,30 +80,76 @@ def test_layer_norm_row_layout_reads_views_in_place():
 
 def test_minilm_layer_norms_take_k1_in_eval_and_the_plain_version_in_training(monkeypatch):
     """flax_layer_norm runs K1's wrapper (fused_layer_norm) in eval, the
-    residual post-norms with their add folded in, and the plain,
-    differentiable version in training: 1 + 2 x layers calls either way."""
+    residual post-norms with their add folded in: 1 + 2 x layers calls. In
+    training it runs the same wrapper through layer_norm's closed-form
+    backward (on the CPU the wrapper's plain version): the same calls, the
+    same output, and parameter gradients equal to plain autograd's (f32,
+    1e-5)."""
     from transfusion_torch.models import text_encoder as te
 
-    calls = {"fused": [], "plain": []}
+    calls = []
 
-    def counting(kind, fn):
-        def wrapped(x, w, b, eps, residual=None):
-            calls[kind].append(residual is not None)
-            return fn(x, w, b, eps, residual)
-        return wrapped
+    def counting(x, w, b, eps, residual=None):
+        calls.append(residual is not None)
+        return t_ln.layer_norm_plain(x, w, b, eps, residual)
 
-    monkeypatch.setattr(te, "fused_layer_norm", counting("fused", t_ln.fused_layer_norm))
-    monkeypatch.setattr(te, "layer_norm_plain", counting("plain", t_ln.layer_norm_plain))
     cfg = te.BertConfig(vocab_size=50, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
                         max_position_embeddings=16, dropout=0.0)
     enc = te.BertEncoder(cfg).eval()
     ids, mask = torch.randint(0, 50, (2, 8)), torch.ones(2, 8, dtype=torch.int64)
+    cot = torch.randn(2, 8, 16)
+    with monkeypatch.context() as m:
+        m.setattr(te, "layer_norm", t_ln.layer_norm_plain)  # plain autograd as the reference
+        (enc.train()(ids, mask) * cot).sum().backward()
+    want_grads = {n: p.grad.clone() for n, p in enc.named_parameters() if p.grad is not None}
+    enc.zero_grad(set_to_none=True)
+    monkeypatch.setattr(t_ln, "fused_layer_norm", counting)
     with torch.no_grad():
-        want = enc(ids, mask)
-    assert calls == {"fused": [False, True, True, True, True], "plain": []}
+        want = enc.eval()(ids, mask)
+    assert calls == [False, True, True, True, True]
     got = enc.train()(ids, mask)
-    assert calls["plain"] == [False, True, True, True, True] and len(calls["fused"]) == 5
+    assert calls == [False, True, True, True, True] * 2
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    (got * cot).sum().backward()
+    ln_names = [n for n in want_grads if "LayerNorm" in n]
+    assert len(ln_names) == 10
+    for n, g in want_grads.items():
+        torch.testing.assert_close(dict(enc.named_parameters())[n].grad, g, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_vjp_matches_jax_custom_vjp(rng, dtype, residual):
+    """layer_norm's closed-form backward against JAX's custom_vjp of K1
+    (_fused_ln_bwd / _fused_res_ln_bwd) on one cotangent, 74 rows of 896 at
+    eps 1e-6. dx (and dresidual, the same) and dweight, dbias: f32 1e-4
+    relative to each gradient's largest entry; bf16 3e-2 (dx is rounded to
+    bf16, one ulp)."""
+    d, eps = 896, 1e-6
+    x = rng.normal(2.0, 3.0, (2, 37, d)).astype(np.float32)
+    r = rng.normal(0.0, 1.0, (2, 37, d)).astype(np.float32)
+    w = rng.normal(1.0, 0.2, (d,)).astype(np.float32)
+    b = rng.normal(0.0, 0.2, (d,)).astype(np.float32)
+    cot = rng.normal(0.0, 1.0, (2, 37, d)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, jr = jnp.asarray(x).astype(jdt), jnp.asarray(r).astype(jdt)
+    if residual:
+        _, vjp = jax.vjp(lambda x_, r_, w_, b_: j_fused_ln(x_, w_, b_, eps, residual=r_), jx, jr,
+                         jnp.asarray(w), jnp.asarray(b))
+        want = vjp(jnp.asarray(cot).astype(jdt))
+    else:
+        _, vjp = jax.vjp(lambda x_, w_, b_: j_fused_ln(x_, w_, b_, eps), jx, jnp.asarray(w), jnp.asarray(b))
+        want = vjp(jnp.asarray(cot).astype(jdt))
+    tx, tr = _t(x, tdt).requires_grad_(), _t(r, tdt).requires_grad_()
+    tw, tb = _t(w).requires_grad_(), _t(b).requires_grad_()
+    y = t_ln.layer_norm(tx, tw, tb, eps, residual=tr if residual else None)
+    y.backward(_t(cot, tdt))
+    got = (tx.grad, tr.grad, tw.grad, tb.grad) if residual else (tx.grad, tw.grad, tb.grad)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for g, ref in zip(got, want):
+        ref = np.asarray(ref, np.float32)
+        assert g.dtype == (tdt if g.dim() == 3 else torch.float32)
+        np.testing.assert_allclose(g.float().numpy(), ref, rtol=0, atol=tol * float(np.abs(ref).max()))
 
 
 # ------------------------------------------------------------ (b) K2 attention

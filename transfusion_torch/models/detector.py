@@ -87,26 +87,29 @@ class FasterRCNN(nn.Module):
     def apply_fpn(self, feats):
         return self.backbone.fpn(feats)
 
-    def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
-                      draws=None, generator=None, rng=None, sample: bool | None = None):
-        """RPN + RoI heads over FPN maps. Eval: every proposal. ``train``
-        keeps the training proposal counts; ``sample`` (default: ``train``):
-        targets {boxes [B, G, 4], nouns, verbs, ttcs, valid [B, G]} are
-        assigned and S RoIs an image sampled with ``draws`` (positive and
-        negative uniform keys [B, P + G]), drawn from ``generator`` when not
-        given, so validation losses can sample on an eval forward; ``rng`` (a
-        DropoutRNG) feeds the RoI dropouts in training mode. Returns
-        {"roi_outputs", "proposals", "image_sizes"}; when sampling
-        roi_outputs also carries labels (nouns, verbs, ttcs) and reg_targets,
-        and proposals the anchor labels and matches."""
-        if sample is None:
-            sample = train
+    def propose(self, fpn_feats, image_hw, train: bool = False):
+        """RPN head and proposals over FPN maps, at the training proposal
+        counts when ``train``."""
         objectness, deltas = self.rpn.head(fpn_feats)
-        rpn_out = generate_proposals(objectness, deltas, image_hw, self.cfg.rpn, train)
+        return generate_proposals(objectness, deltas, image_hw, self.cfg.rpn, train)
+
+    def apply_roi(self, fpn_feats, rpn_out, image_hw, targets=None, sample: bool = False,
+                  draws=None, generator=None, rng=None):
+        """RoI heads over ``propose``'s proposals. Without ``sample``: every
+        proposal. With it: targets {boxes [B, G, 4], nouns, verbs, ttcs,
+        valid [B, G]} are assigned and S RoIs an image sampled with
+        ``draws`` (positive and negative uniform keys [B, P + G]), drawn from
+        ``generator`` when not given, so validation losses can sample on an
+        eval forward; ``rng`` (a DropoutRNG) feeds the RoI dropouts in
+        training mode. Returns {"roi_outputs", "proposals", "image_sizes"};
+        when sampling roi_outputs also carries labels (nouns, verbs, ttcs)
+        and reg_targets, and proposals (a copy of ``rpn_out``) the anchor
+        labels and matches."""
         sampled = None
         if sample:
             dev = self.device
             targets = {k: v.to(dev) for k, v in targets.items()}
+            rpn_out = dict(rpn_out)
             rpn_out["labels"], rpn_out["matches"] = assign_targets_to_anchors(
                 rpn_out["anchors"], targets["boxes"].float(), targets["valid"].bool(), self.cfg.rpn)
             if draws is None:
@@ -125,6 +128,15 @@ class FasterRCNN(nn.Module):
             roi_outputs["labels"] = (sampled["nouns"], sampled["verbs"], sampled["ttcs"])
             roi_outputs["reg_targets"] = sampled["reg_targets"]
         return {"roi_outputs": roi_outputs, "proposals": rpn_out, "image_sizes": tuple(image_hw)}
+
+    def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
+                      draws=None, generator=None, rng=None, sample: bool | None = None):
+        """``propose`` then ``apply_roi`` over FPN maps: in training at the
+        training proposal counts. ``sample`` (default: ``train``) assigns
+        targets and samples RoIs, also on an eval forward."""
+        rpn_out = self.propose(fpn_feats, image_hw, train)
+        return self.apply_roi(fpn_feats, rpn_out, image_hw, targets, train if sample is None else sample,
+                              draws, generator, rng)
 
     def forward(self, images, image_hw, targets=None, train: bool = False, draws=None,
                 generator=None, rng=None):

@@ -19,8 +19,8 @@ a sequence of at least 2048 tokens (``transfusion_tpu/models/fusion.py:161``);
 in training K2 drops attention probabilities at ``token_dropout`` with a
 seed drawn per layer and call from the step's ``DropoutRNG``. Shorter
 levels take the plain path, which masks with -1e9 and scales in the compute
-dtype as XLA's path does. norm1/norm2/final_norm use kernel K1 in eval and
-the plain LayerNorm in training (:mod:`transfusion_torch.ops.layer_norm`).
+dtype as XLA's path does. norm1/norm2/final_norm run kernel K1 in eval and
+in training, with a closed-form backward (:mod:`transfusion_torch.ops.layer_norm`).
 Training mode also turns on the dropout sites of ``fusion.py:187-204,268,309``.
 """
 

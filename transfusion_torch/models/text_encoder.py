@@ -7,9 +7,9 @@ Parameter names follow huggingface ``BertModel`` under the reference's
 ``narr_pooling_layer.encoder.0.auto_model`` prefix, so the state dict is the
 reference checkpoint's. The LayerNorms have flax semantics (f32
 statistics, var = E[x^2] - mean^2, eps 1e-12), which is kernel K1's
-arithmetic: in eval they run K1 (:func:`fused_layer_norm`, the residual
-post-norms with their add folded in), in training its plain, differentiable
-version. The JAX model leaves them to XLA.
+arithmetic: they run K1 through :func:`layer_norm` (the residual post-norms
+with their add folded in; a closed-form backward in training). The JAX
+model leaves them to XLA.
 
 Dropout draws from a :class:`DropoutRNG`, the explicit generators of one
 train step derived from (seed, step), which the step passes down as ``rng``;
@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from transfusion_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+from transfusion_torch.ops.layer_norm import layer_norm
 
 
 @dataclass(frozen=True)
@@ -105,12 +105,11 @@ def dropout(x, rate: float, training: bool, rng: DropoutRNG | None):
 def flax_layer_norm(x, mod: nn.LayerNorm, dtype, residual=None):
     """flax ``nn.LayerNorm(dtype=dtype)`` of ``x`` (or of ``x + residual``,
     both cast to ``dtype`` and summed in it): f32 statistics with the fast
-    variance, f32 affine, output in ``dtype``. Kernel K1 in eval; in
-    training its plain, differentiable version (K1 has no backward)."""
+    variance, f32 affine, output in ``dtype``: kernel K1 with
+    :func:`layer_norm`'s backward."""
     if residual is not None:
         x, residual = x.to(dtype), residual.to(dtype)
-    norm = layer_norm_plain if mod.training else fused_layer_norm
-    return norm(x, mod.weight, mod.bias, mod.eps, residual).to(dtype)
+    return layer_norm(x, mod.weight, mod.bias, mod.eps, residual).to(dtype)
 
 
 class _Embeddings(nn.Module):

@@ -248,10 +248,11 @@ class TransFusion(FasterRCNN):
     def eval_with_losses(self, batch: dict, draws=None, generator=None):
         """One eval forward giving {"eval": every proposal's RoI outputs, for
         the detections; "loss": the same trunk's RPN labels and sampled RoIs
-        (``draws`` / ``generator`` as in ``apply_rpn_roi``), for the
-        validation losses}. Dropout stays off (eval mode)."""
+        (``draws`` / ``generator`` as in ``apply_roi``), for the
+        validation losses}. Both branches take one set of eval proposals.
+        Dropout stays off (eval mode)."""
         fpn_feats = self.trunk(batch)
         hw = batch["image_hw"]
-        return {"eval": self.apply_rpn_roi(fpn_feats, hw),
-                "loss": self.apply_rpn_roi(fpn_feats, hw, batch["targets"], draws=draws,
-                                           generator=generator, sample=True)}
+        rpn_out = self.propose(fpn_feats, hw)
+        return {"eval": self.apply_roi(fpn_feats, rpn_out, hw),
+                "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator)}

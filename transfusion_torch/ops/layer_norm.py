@@ -11,11 +11,13 @@ On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``,
 which reads ``x`` in place when its rows are contiguous within each batch
 (:func:`row_layout`: a contiguous tensor, or a view such as ``x[:, :n]``);
 on a CPU tensor it runs :func:`layer_norm_plain`. The kernel has no
-backward, as the TPU kernel runs on eval passes only (layer_norm.py:175-192):
-it refuses a CUDA input that requires grad while grad mode is on, and
-:class:`FusedLayerNorm` in training mode takes the differentiable plain
-version, which is the LayerNorm the JAX package trains with (flax's, with
-the same variance formula).
+backward, so it refuses a CUDA input that requires grad while grad mode is
+on. :func:`layer_norm` is the differentiable form, JAX's ``custom_vjp``
+(``_fused_ln`` / ``_fused_res_ln``): K1 forward, and a closed-form backward
+in PyTorch from the saved input with recomputed f32 statistics
+(:func:`_ln_grads`). :class:`FusedLayerNorm` and the narration encoder's norms
+run it in training and in eval alike. (The JAX module trains with flax's
+LayerNorm, whose variance formula is the same.)
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ def _layer_norm_cuda(x, weight, bias, eps, residual):
     d = x.shape[-1]
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, residual, weight, bias)):
-        raise RuntimeError("fused_layer_norm: the LayerNorm kernel has no backward; train with "
-                           "layer_norm_plain (FusedLayerNorm does in training mode)")
+        raise RuntimeError("fused_layer_norm: the LayerNorm kernel has no backward; train through "
+                           "layer_norm (FusedLayerNorm does)")
     kernels.require(x.dtype in (torch.float32, torch.bfloat16), f"layer_norm: dtype {x.dtype}")
     kernels.require(0 < d <= 1024 and d % 8 == 0, "layer_norm: the last dim must be a multiple of 8, <= 1024")
     layout = row_layout(x)
@@ -98,11 +100,47 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-6, residual=None):
     return _layer_norm_cuda(x, weight, bias, eps, residual)
 
 
+def _ln_grads(s, weight, g, eps):
+    """Closed-form LayerNorm gradient of ``s`` (the sum, in its dtype) with
+    recomputed f32 statistics: (dx in f32, dweight, dbias)."""
+    sf, gf = s.float(), g.float()
+    mean = sf.mean(-1, keepdim=True)
+    var = torch.clamp((sf * sf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (sf - mean) * rstd
+    gw = gf * weight.float()
+    gx = rstd * (gw - gw.mean(-1, keepdim=True) - xhat * (gw * xhat).mean(-1, keepdim=True))
+    d = g.shape[-1]
+    return (gx, (gf * xhat).reshape(-1, d).sum(0).to(weight.dtype),
+            gf.reshape(-1, d).sum(0).to(weight.dtype))
+
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, residual):
+        ctx.save_for_backward(x, weight, residual)
+        ctx.eps = eps
+        return fused_layer_norm(x, weight, bias, eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, residual = ctx.saved_tensors
+        gx, gw, gb = _ln_grads(x if residual is None else x + residual, weight, g, ctx.eps)
+        gx = gx.to(x.dtype)
+        return gx, gw, gb, None, None if residual is None else gx
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-6, residual=None):
+    """:func:`fused_layer_norm` with a backward: K1 forward on the card (its
+    plain version on the CPU), the gradient from :func:`_ln_grads`."""
+    return _LayerNormFn.apply(x, weight, bias, eps, residual)
+
+
 class FusedLayerNorm(nn.Module):
     """Same parameter names as ``nn.LayerNorm`` (``weight``/``bias``);
     ``forward(x, residual=h)`` fuses the post-norm residual add. Inputs are
-    cast to ``dtype`` first, as the JAX module does. In training mode it
-    runs the plain, differentiable version; in eval mode the kernel."""
+    cast to ``dtype`` first, as the JAX module does. It runs
+    :func:`layer_norm`: the kernel forward in training and eval."""
 
     def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
         super().__init__()
@@ -117,6 +155,4 @@ class FusedLayerNorm(nn.Module):
             x = x.contiguous()  # the kernel reads batch-strided views such as x[:, :n] in place
         if residual is not None:
             residual = residual.to(self.dtype).contiguous()
-        if self.training:
-            return layer_norm_plain(x, self.weight, self.bias, self.eps, residual)
-        return fused_layer_norm(x, self.weight, self.bias, self.eps, residual)
+        return layer_norm(x, self.weight, self.bias, self.eps, residual)

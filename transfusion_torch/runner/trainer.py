@@ -44,7 +44,7 @@ from transfusion_torch.train.checkpoint import (CheckpointManager, map_tensors,
 from transfusion_torch.train.losses import build_class_weights
 from transfusion_torch.train.optim import make_optimizer
 from transfusion_torch.train.step import (LossConfig, TrainState, criterion_weights,
-                                          make_eval_loss_step, make_eval_step, make_train_step,
+                                          make_eval_loss_step, make_train_step,
                                           normalized_criterion_weights)
 from transfusion_torch.weights import init_random_, strip_wrapper_prefixes
 
@@ -324,8 +324,6 @@ class EgoNaoTrainer:
     def _build_steps(self):
         self.train_step = make_train_step(self.model, self.tx, self.loss_cfg, self.noun_w,
                                           self.verb_w)
-        self.eval_step = make_eval_step(self.model, self.model_cfg.detector,
-                                        noun_verb_frequencies=self.noun_verb_freqs)
         # Detections and real validation losses from one trunk (the
         # reference logs its normalised-weight val loss over constant zeros,
         # ego_nao_trainer.py:407-427).
