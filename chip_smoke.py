@@ -38,7 +38,7 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    and a few timed steps; frames/s, peak memory, finite losses, no skipped
    step, non-zero gradients upstream of the attention and RoIAlign
    kernels, and launches a step of attention-with-dropout 4 / dQ 4 /
-   dK-dV 4 / RoIAlign 1 / RoIAlign backward 1 / LayerNorm 0;
+   dK-dV 4 / RoIAlign 1 / RoIAlign backward 1 / LayerNorm 5 / residual 56;
 6. the trainer: ``EgoNaoTrainer(flagship_run_config(), ...).fit(1)`` on
    in-memory examples at the 768x1024 bucket (32 train, 16 val, 1-2 GT
    boxes each, v2 label space, narrations through the hash-vocab tokenizer
@@ -48,7 +48,20 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    train slice, per validation batch LN 5 / residual LN 56 / attention 4 /
    RoIAlign 2; then a fresh trainer resumed from the checkpoint must hold
    the same parameters, optimizer state, step and seed bit for bit, and
-   evaluate to the same detections bit for bit, the same mAP and losses.
+   evaluate to the same detections bit for bit, the same mAP and losses;
+7. the fusion options: K1 and its backward at the shapes they add
+   (FUSION_OPTION_LN_SHAPES) against the plain versions, then five
+   configurations at flagship width and depth, each
+   ``flagship_run_config()`` with FUSION_OPTIONS' changes mapped by
+   ``build_transfusion_config`` (the LM head with the JAX CLI's lm_args; a
+   shared stack with summed language, learned positions and per-level
+   heads; asymmetric with a multi-level head; space-time with ReLU;
+   SlowFast clip features [8, 6, 2304] with embedding mode and direct
+   language forwarding), seeded weights: two eval requests and two train
+   steps after a warm-up each, finite losses, a non-zero LM loss, non-zero
+   gradients on the LM heads and upstream of the new layers, and launches
+   a forward and a step as EXPECTED_FUSION_OPTIONS predicts; eval s, step s
+   and peak memory beside the card's name and power limit.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -63,6 +76,7 @@ ptxas report) goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -75,6 +89,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 B, H, W, LANG_LEN = 8, 768, 1024, 64
 REQUESTS = 10  # the request is host-bound and varies; ten give a steadier mean
 TRAIN_STEPS = 4
+REQUESTS_FO, TRAIN_STEPS_FO = 2, 2  # each fusion-option configuration, after a warm-up
 HBM_BPS = 3.35e12          # H100 SXM HBM3
 BF16_TC_FLOPS = 989e12     # dense bf16 tensor cores
 F32_FLOPS = 67e12          # f32 outside the tensor cores
@@ -1091,22 +1106,14 @@ def trainer_data(np, seed: int = 0):
                        hash_vocab_tokenizer(max_length=TRAINER_LANG))
 
 
-def check_trainer_shapes(torch):
-    """K1-K4 at the trainer's shapes, which 128 narration tokens make other
-    than the eval and train slices' (level 0 3,200 tokens, levels 1-3 896,
-    MiniLM 128), against their plain versions with the kernel phases'
-    tolerances."""
-    from transfusion_torch.ops import attention as at
+def check_ln_shapes(torch, g, shapes, tag: str) -> None:
+    """K1 at each of ``shapes`` (as LN_SHAPES states them) against its plain
+    version (bf16 3.2e-2, f32 1e-4), and ``layer_norm``'s backward (K1
+    forward, closed-form gradient) against autograd through the plain
+    version."""
     from transfusion_torch.ops import layer_norm as ln
 
-    g = torch.Generator(device="cuda").manual_seed(9)
-    n0, n1 = 3072 + TRAINER_LANG, 768 + TRAINER_LANG
-    for shape in ({"n": n0, "d": 896, "dtype": "bf16", "residual": True},
-                  {"n": 3072, "view": n0, "d": 896, "dtype": "bf16", "residual": False},
-                  {"n": n1, "d": 896, "dtype": "bf16", "residual": True},
-                  {"n": 768, "view": n1, "d": 896, "dtype": "bf16", "residual": False},
-                  {"n": TRAINER_LANG, "d": 384, "dtype": "bf16", "residual": True, "eps": 1e-12},
-                  {"n": TRAINER_LANG, "d": 384, "dtype": "f32", "residual": False, "eps": 1e-12}):
+    for shape in shapes:
         sets, w, b = ln_inputs(torch, shape, g)
         x, r = sets[0]
         eps = shape.get("eps", 1e-6)
@@ -1115,7 +1122,7 @@ def check_trainer_shapes(torch):
         label = (f"{'residual_' if r is not None else ''}layer_norm "
                  f"[{B} x {shape['n']}{' of ' + str(shape['view']) if 'view' in shape else ''}, "
                  f"{shape['d']}] {shape['dtype']}")
-        check(f"[trainer shapes] {label}", err, 3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+        check(f"[{tag}] {label}", err, 3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
         # The train step's backward: layer_norm (K1 forward, closed-form
         # gradient) against autograd through the plain version, each
         # gradient relative to its largest entry; dx is rounded to the input
@@ -1128,13 +1135,41 @@ def check_trainer_shapes(torch):
             grads.append([t.grad for t in ins])
         for name, a, b_ in zip(("dx", "dweight", "dbias", "dresidual"), *grads):
             rel = max_err(a, b_) / float(b_.float().abs().max())
-            check(f"[trainer shapes] {label} {name}", rel,
+            check(f"[{tag}] {label} {name}", rel,
                   2 ** -7 if name in ("dx", "dresidual") and shape["dtype"] == "bf16" else 1e-4,
                   "max|layer_norm - plain autograd| / max|plain|")
+
+
+def check_trainer_shapes(torch):
+    """K1-K4 at the trainer's shapes, which 128 narration tokens make other
+    than the eval and train slices' (level 0 3,200 tokens, levels 1-3 896,
+    MiniLM 128), against their plain versions with the kernel phases'
+    tolerances."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n0, n1 = 3072 + TRAINER_LANG, 768 + TRAINER_LANG
+    check_ln_shapes(torch, g, (
+        {"n": n0, "d": 896, "dtype": "bf16", "residual": True},
+        {"n": 3072, "view": n0, "d": 896, "dtype": "bf16", "residual": False},
+        {"n": n1, "d": 896, "dtype": "bf16", "residual": True},
+        {"n": 768, "view": n1, "d": 896, "dtype": "bf16", "residual": False},
+        {"n": TRAINER_LANG, "d": 384, "dtype": "bf16", "residual": True, "eps": 1e-12},
+        {"n": TRAINER_LANG, "d": 384, "dtype": "f32", "residual": False, "eps": 1e-12}),
+        "trainer shapes")
+    check_attention_shapes(torch, g, n0, 50, "trainer shapes")
+
+
+def check_attention_shapes(torch, g, n0: int, pad: int, tag: str) -> None:
+    """K2 at rates 0 and DROPOUT, and K3/K4 at DROPOUT, over [B, n0, HEADS,
+    HEAD_DIM] bf16 with the last ``pad`` keys of half the batch padded,
+    against their plain versions: 2 bf16 ulps of the largest output entry
+    (4 for the gradients) and a mean relative error under 2^-7."""
+    from transfusion_torch.ops import attention as at
+
     q, k, v, dout = (torch.randn(B, n0, HEADS, HEAD_DIM, device="cuda", generator=g).to(torch.bfloat16)
                      for _ in range(4))
     mask = torch.zeros(B, n0, dtype=torch.bool, device="cuda")
-    mask[: B // 2, -50:] = True
+    if pad:
+        mask[: B // 2, -pad:] = True
     for rate in (0.0, DROPOUT):
         out, stats = at.attention_fwd(q, k, v, mask, rate, 77, return_stats=True)
         pairs = [("output", out, at.attention_plain(q, k, v, mask, rate, 77)[0], 2)]
@@ -1143,9 +1178,9 @@ def check_trainer_shapes(torch):
                         at.attention_bwd_plain(q, k, v, out, stats, dout, mask, rate, 77))
             pairs += [(name, a, b_, 4) for name, a, b_ in grads]
         for name, a, b_, ulps in pairs:
-            check(f"[trainer shapes] attention bf16 {name} [{B}, {n0}, {HEADS}, {HEAD_DIM}] rate {rate}",
+            check(f"[{tag}] attention bf16 {name} [{B}, {n0}, {HEADS}, {HEAD_DIM}] rate {rate}",
                   max_err(a, b_), ulps * bf16_ulp(float(b_.float().abs().max())))
-            check(f"[trainer shapes] attention bf16 {name} rate {rate}",
+            check(f"[{tag}] attention bf16 {name} rate {rate}",
                   float((a.float() - b_.float()).abs().mean() / b_.float().abs().mean()), 2.0 ** -7,
                   "mean|kernel - plain| / mean|plain|")
     del q, k, v, dout, out, stats, pairs
@@ -1295,6 +1330,235 @@ def phase_trainer(torch, np):
             "launches_val": counts["val"], "phase_s": wall}
 
 
+# The fusion-options phase: five configurations of the egonao model, each
+# the flagship run config (full width and depth) with the changes below,
+# mapped by build_transfusion_config. LM_ARGS are the JAX CLI's lm_args.
+LM_ARGS = {"pooling": {"type": "mean", "ln": True, "repr_size": 0}, "multi": False, "use_lm_f": True}
+LM_CRITERION = {"lm": 1, "lm_decay": 0.8}
+FUSION_OPTIONS = {
+    "lm": {"criterion": LM_CRITERION, "narr_fusion": {"lm_args": LM_ARGS}},
+    "shared_sum_sep": {"criterion": LM_CRITERION, "narr_fusion": {
+        "share_encoders": True, "forward_language_f": "sum", "pos_embedding": "learned",
+        "lm_args": {**LM_ARGS, "multi": "sep", "use_lm_f": False}}},
+    "asymmetric": {"criterion": LM_CRITERION, "narr_fusion": {
+        "type": "asymmetric", "args": {"lang_layers": 2},
+        "lm_args": {**LM_ARGS, "multi": True, "use_lm_f": False}}},
+    "space_time": {"narr_fusion": {"type": "space_time", "args": {"activ_f": "relu", "final_norm": "ln"}}},
+    "vis_lang": {"narration_embeds": {"slowfast_f_v": True},
+                 "narr_fusion": {"narr_out_mode": "embedding", "forward_language_f": "direct"}},
+}
+CLIP_SHAPE = (B, 6, 2304)  # SlowFast clip features a sample
+
+
+def _launches(ln: int, res: int, k2: bool, step: bool) -> dict:
+    """Kernel launches a forward (``step`` False) or a train step: K1 plain
+    ``ln`` and residual ``res`` times; K2 4 times (level 0's four layers)
+    where ``k2``, with dropout and K3/K4 in a step; K5 once, K6 once a step."""
+    out = {"layer_norm": ln, "residual_layer_norm": res, "roi_align_fwd": 1,
+           "attention_fwd": 4 if k2 and not step else 0}
+    if step:
+        out.update(attention_fwd_dropout=4 * k2, attention_bwd_dq=4 * k2, attention_bwd_dkv=4 * k2,
+                   roi_align_bwd=1)
+    return out
+
+
+# Predicted per configuration (PERF.md §4): MiniLM runs K1 1 + 24 times; the
+# LM head's norm once a call, and once a level under multi / sep; the
+# cross-transformer levels 4 final norms and 4 x 4 x 2 residual norms (the
+# shared stack the same 16 layer calls); the asymmetric levels 4 x (4 + 2)
+# QKV layers x 2 residual norms and no final norm; the space-time levels 4
+# x 4 layers x (spatial + temporal) x 2 residual norms and 4 final norms;
+# clip fusion 4 x 2 layers x 2 more. Only cross-transformer layers at level
+# 0 (3,136 or 3,073 tokens, global mask) pass K2's gate.
+EXPECTED_FUSION_OPTIONS = {
+    "lm": (6, 56, True), "shared_sum_sep": (9, 56, True), "asymmetric": (5, 72, False),
+    "space_time": (5, 88, False), "vis_lang": (5, 72, True)}
+# K1 at the shapes the five configurations add: the LM head's norm (8 rows),
+# the QKV layers' language (64 tokens) and visual norms (the first layer
+# pair's norm1 in f32: bf16 tokens plus an f32 kind embedding, summed and
+# normalised in f32 as flax's LayerNorm does), the space-time layers (the
+# patch grid, no language; the final norm plain, of an f32 stream), and the
+# clip fusion (3,072 + 6 tokens) with its level (3,072 + 1 tokens, final
+# norm through its view), at level 0 and at levels 1-3 (768 patches).
+FUSION_OPTION_LN_SHAPES = (
+    {"n": 1, "d": 896, "dtype": "bf16", "residual": False},
+    {"n": LANG_LEN, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": LANG_LEN, "d": 896, "dtype": "f32", "residual": True},
+    {"n": 3072, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 3072, "d": 896, "dtype": "f32", "residual": True},
+    {"n": 3072, "d": 896, "dtype": "f32", "residual": False},
+    {"n": 768, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 768, "d": 896, "dtype": "f32", "residual": True},
+    {"n": 768, "d": 896, "dtype": "f32", "residual": False},
+    {"n": 3078, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 3073, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 3072, "view": 3073, "d": 896, "dtype": "bf16", "residual": False},
+    {"n": 774, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 769, "d": 896, "dtype": "bf16", "residual": True},
+    {"n": 768, "view": 769, "d": 896, "dtype": "bf16", "residual": False},
+)
+# A parameter upstream of each configuration's new layers, whose gradient
+# must not be zero after a step.
+UPSTREAM = {
+    "lm": "cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight",
+    "shared_sum_sep": "shared_t_encoder.layers.0.self_attn.in_proj_weight",
+    "asymmetric": "cross_fusion_encoders.0.vis_layers.0.q_proj.weight",
+    "space_time": "cross_fusion_encoders.0.encoder.layers.0.spatial.self_attn.in_proj_weight",
+    "vis_lang": "vis_fusion.0.proj.weight",
+}
+
+
+def fusion_option_run_config(name: str) -> dict:
+    cfg = flagship_run_config()
+    run = cfg["run"]
+    for key, changes in FUSION_OPTIONS[name].items():
+        node = run[key]
+        for k, v in changes.items():
+            if k == "args":
+                node["args"].update(v)
+            else:
+                node[k] = v
+    return cfg
+
+
+def fusion_option_batch(torch, np) -> dict:
+    """The phase's batch on the card: B images at H x W, LANG_LEN tokens
+    (the last quarter padded in half the images), clip features
+    CLIP_SHAPE, one GT box an image."""
+    rng = np.random.default_rng(1)
+    dev = "cuda"
+    mask = torch.ones(B, LANG_LEN, dtype=torch.int64, device=dev)
+    mask[: B // 2, 3 * LANG_LEN // 4:] = 0
+    return {
+        "image": torch.from_numpy(rng.normal(0, 0.7, (B, H, W, 3)).astype(np.float32)).to(dev),
+        "input_ids": torch.from_numpy(rng.integers(0, 30000, (B, LANG_LEN))).to(dev),
+        "attention_mask": mask, "image_hw": (H, W),
+        "visual_features": torch.from_numpy(rng.normal(0, 1, CLIP_SHAPE).astype(np.float32)).to(dev),
+        "targets": {"boxes": torch.tensor([[[100.0, 100.0, 400.0, 400.0]]], device=dev).repeat(B, 1, 1),
+                    "nouns": torch.full((B, 1), 2, device=dev), "verbs": torch.full((B, 1), 1, device=dev),
+                    "ttcs": torch.full((B, 1), 0.9, device=dev),
+                    "valid": torch.ones(B, 1, dtype=torch.bool, device=dev)}}
+
+
+def fusion_option_train_step(torch, model, cfg, run_cfg):
+    """The train slice's step for a fusion-option model: RAdam (lr 1e-4,
+    wd 1e-5), the epoch-0 freeze, the run config's criterion weights.
+    Returns (step, state, loss weights, freeze multipliers)."""
+    from transfusion_torch.runner.trainer import unfreeze_multipliers
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import LossConfig, TrainState, criterion_weights, make_train_step
+
+    nn_, nv = cfg.detector.roi.num_nouns, cfg.detector.roi.num_verbs
+    tx, _ = make_optimizer({"name": "radam", "lr": 1e-4, "weight_decay": 1e-5}, None, 100)
+    state = TrainState(step=0, opt_state=tx.init(dict(model.named_parameters())))
+    mult = unfreeze_multipliers(model.named_parameters(), 0, run_cfg["model"], -1, 1,
+                                cfg.bert.num_layers)
+    step = make_train_step(model, tx, LossConfig(lm_on=cfg.lm_on, rpn_batch_size_per_image=256,
+                                                 last_noun_idx=nn_ - 1),
+                           torch.ones(nn_), torch.ones(nv))
+    return step, state, criterion_weights({**run_cfg["run"]["criterion"]}, 0), mult
+
+
+def phase_fusion_options(torch, np, smi: str):
+    """Each of the five configurations at flagship width and depth: built
+    from its run config through build_transfusion_config, seeded weights,
+    an eval request (warm-up, then REQUESTS_FO timed) and the train slice's
+    step (RAdam, epoch-0 freeze; warm-up, then TRAIN_STEPS_FO timed), with
+    launch counts, finite losses, and non-zero gradients on the LM head and
+    upstream of the new layers."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.detector import detections_from_outputs
+    from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
+    from transfusion_torch.weights import init_random_
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    check_ln_shapes(torch, g, FUSION_OPTION_LN_SHAPES, "fusion-option shapes")
+    # vis_lang's level 0: 3,072 patches and the one embedding-mode token, no
+    # key padded; 48 full 64-row tiles and a tail of one row.
+    check_attention_shapes(torch, g, 3073, 0, "fusion-option shapes")
+    torch.cuda.empty_cache()
+    dev = "cuda"
+    batch = fusion_option_batch(torch, np)
+    records = {}
+    for name in FUSION_OPTIONS:
+        gc.collect()  # earlier phases' models may sit in reference cycles until collected
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        run_cfg = fusion_option_run_config(name)
+        t0 = time.perf_counter()
+        cfg = build_transfusion_config(run_cfg, 88, 75, dtype=torch.bfloat16)
+        model = init_random_(TransFusion(cfg, device=dev), seed=0)
+        build_s = time.perf_counter() - t0
+        nn_ = cfg.detector.roi.num_nouns
+        torch.cuda.reset_peak_memory_stats()
+
+        def request():
+            with torch.inference_mode():
+                out = model(batch)
+                return out, detections_from_outputs(out, cfg.detector)
+
+        request()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        eval_s = []
+        for _ in range(REQUESTS_FO):
+            t0 = time.perf_counter()
+            out, dets = request()
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+        per_forward = {k: v / REQUESTS_FO for k, v in LAUNCHES.items()}
+        if not all(torch.isfinite(dets[k]).all() for k in ("boxes", "scores", "ttcs")):
+            raise AssertionError(f"[{name}] non-finite detections")
+        if cfg.lm_on and tuple(out["lm"]["noun_logits"].shape) != (B, nn_ - 1):
+            raise AssertionError(f"[{name}] LM logits {tuple(out['lm']['noun_logits'].shape)}")
+        del out, dets
+
+        step, state, lw, mult = fusion_option_train_step(torch, model, cfg, run_cfg)
+        step(state, batch, lw, mult)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        step_s, metrics = [], []
+        for _ in range(TRAIN_STEPS_FO):
+            t0 = time.perf_counter()
+            m = step(state, batch, lw, mult)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        per_step = {k: v / TRAIN_STEPS_FO for k, v in LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for m in metrics:
+            if not all(math.isfinite(v) for v in m.values()) or m["nonfinite_skipped"] != 0.0:
+                raise AssertionError(f"[{name}] a train step went non-finite or was skipped: {m}")
+            if cfg.lm_on and not m["lm_loss"] > 0.0:
+                raise AssertionError(f"[{name}] lm loss {m['lm_loss']}")
+        params = dict(model.named_parameters())
+        watched = [UPSTREAM[name]] + [n for n in params if n.startswith("lm_layer") and n.endswith(
+            "mlp_noun.weight")]
+        grads = {n: float(params[n].grad.float().norm()) for n in watched}
+        if not all(v > 0.0 for v in grads.values()):
+            raise AssertionError(f"[{name}] zero gradient: {grads}")
+        want_fwd = _launches(*EXPECTED_FUSION_OPTIONS[name], step=False)
+        want_step = _launches(*EXPECTED_FUSION_OPTIONS[name], step=True)
+        got_fwd = {k: per_forward.get(k, 0) for k in want_fwd}
+        got_step = {k: per_step.get(k, 0) for k in want_step}
+        log(f"[fusion options: {name}] built in {build_s:.1f} s "
+            f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M params); launches a forward "
+            f"{got_fwd}, a step {got_step}")
+        log(f"  eval s {[round(t, 4) for t in eval_s]}, step s {[round(t, 4) for t in step_s]}, "
+            f"peak {peak:.2f} GiB ({held:.2f} GiB held before the build; {smi}); losses {[round(m['loss'], 4) for m in metrics]}, lm "
+            f"{[round(m['lm_loss'], 4) for m in metrics]}; |grad| {json.dumps(grads)}")
+        if got_fwd != want_fwd or got_step != want_step:
+            raise AssertionError(f"[{name}] launches differ from the prediction: forward {want_fwd}, "
+                                 f"step {want_step}")
+        records[name] = {"eval_s": eval_s, "step_s": step_s, "peak_gib": peak, "held_gib": held,
+                         "build_s": build_s,
+                         "launches_forward": per_forward, "launches_step": per_step,
+                         "metrics": metrics, "grad_norms": grads, "card": smi}
+        del model, state, step, params, m, metrics
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_profile(torch, model, cfg, batch, freqs):
     """Where a request's time goes: each stage of the forward timed on the
     host clock between synchronisations (so stages do not overlap), then one
@@ -1321,7 +1585,7 @@ def phase_profile(torch, model, cfg, batch, freqs):
             batch["input_ids"], batch["attention_mask"]))
         for i, lvl in enumerate(f.fpn_features):
             feats[str(lvl)] = timed(f"fusion level {lvl}", lambda: model.cross_fusion_encoders[i](
-                feats[str(lvl)], lang, lang_mask, model.patches_to_token[i], model.tokens_to_features[i]))
+                feats[str(lvl)], lang, lang_mask, model.patches_to_token[i], model.tokens_to_features[i])[0])
         fpn = timed("fpn", lambda: model.apply_fpn(feats))
         obj, deltas = timed("rpn head", lambda: model.rpn.head(fpn))
         props = timed("rpn proposals + nms", lambda: generate_proposals(
@@ -1421,6 +1685,8 @@ def main() -> int:
     del model, slice_state, train_step
     torch.cuda.empty_cache()
     trainer_rec = phase_trainer(torch, np)
+    torch.cuda.empty_cache()
+    fusion_rec = phase_fusion_options(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -1445,7 +1711,8 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
-                   "train": train_rec, "trainer": trainer_rec, "ptxas": ptxas,
+                   "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec,
+                   "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(smi)

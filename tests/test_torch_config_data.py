@@ -21,8 +21,6 @@ from tests.fixtures import make_synthetic_ego4d
 from tests.test_runner_cli import FUSION_CFG, MODEL_CFG, RUN_CFG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The port has no LM head yet: the mini run config without the lm criterion.
-PORT_RUN_CFG = RUN_CFG.replace("    lm: 1\n", "    lm: 0\n")
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +33,6 @@ def env(tmp_path_factory):
     (code / "mini_model.yml").write_text(MODEL_CFG)
     (code / "mini_fusion.yml").write_text(FUSION_CFG)
     (code / "run_cfg.yml").write_text(RUN_CFG)
-    (code / "port_run_cfg.yml").write_text(PORT_RUN_CFG)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("CODE", str(code))
         mp.setenv("DATA", str(data))
@@ -85,10 +82,17 @@ def test_load_and_derive_config_match_jax(env):
     _same(dict(_derived(t_config, path)), dict(_derived(j_config, path)))
 
 
+# Fields of the port's config that JAX's lacks: the clip features' width,
+# which JAX's layer reads from the batch and the port's needs at build.
+PORT_ONLY_FIELDS = {"clip_features"}
+
+
 def _fields_match(port, ref, where=""):
     """Every field of the port's config dataclass equals the JAX config's
     field of the same name (dtypes by name)."""
     for f in dataclasses.fields(port):
+        if f.name in PORT_ONLY_FIELDS:
+            continue
         a, b = getattr(port, f.name), getattr(ref, f.name)
         if dataclasses.is_dataclass(a):
             _fields_match(a, b, f"{where}.{f.name}")
@@ -119,7 +123,7 @@ def test_build_transfusion_config_matches_jax(env, which):
     from transfusion_tpu.models import transfusion as j_tf
 
     if which == "mini":
-        cfg = _derived(t_config, os.path.join(env["code"], "port_run_cfg.yml"))
+        cfg = _derived(t_config, os.path.join(env["code"], "run_cfg.yml"))
         nn_, nv = 7, 71
     else:
         cfg = _chip_smoke().flagship_run_config()
@@ -134,25 +138,118 @@ def test_build_transfusion_config_matches_jax(env, which):
         assert dataclasses.replace(got, detector=det) == t_tf.flagship_config()
 
 
+def _flagship_with(*changes):
+    """chip_smoke.py's flagship run config with (path, value) changes."""
+    cfg = _chip_smoke().flagship_run_config()
+    for path, value in changes:
+        node = cfg
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = value
+    return cfg
+
+
 @pytest.mark.parametrize("option, path, value", [
-    ("narr_fusion.type", ("run", "narr_fusion", "type"), "asymmetric"),
-    ("run.criterion.lm", ("run", "criterion", "lm"), 1),
+    ("narration_embeds.args.out_tanh", ("run", "narration_embeds", "args", "out_tanh"), True),
+    ("narration_embeds.args.type_embeddings",
+     ("run", "narration_embeds", "args", "type_embeddings"), ["obj"]),
     ("narration_embeds.args.model_v", ("run", "narration_embeds", "args", "model_v"), "distilgpt2"),
     ("model.batch_norm.use", ("model", "batch_norm", "use"), True),
-    ("narr_fusion.forward_language_f", ("run", "narr_fusion", "forward_language_f"), "sum"),
+    ("run.narration_embeds.use", ("run", "narration_embeds", "use"), False),
     ("model.type", ("model", "type"), "mobilenet"),
 ])
 def test_build_transfusion_config_refuses_unported_options(option, path, value):
     """An option outside the port raises NotImplementedError naming it."""
     from transfusion_torch.models.transfusion import build_transfusion_config
 
-    cfg = _chip_smoke().flagship_run_config()
-    node = cfg
-    for k in path[:-1]:
-        node = node[k]
-    node[path[-1]] = value
     with pytest.raises(NotImplementedError, match=option.replace(".", r"\.")):
-        build_transfusion_config(cfg, 88, 75)
+        build_transfusion_config(_flagship_with((path, value)), 88, 75)
+
+
+NF = ("run", "narr_fusion")
+FUSION_OPTIONS = {
+    "asymmetric": [(NF + ("type",), "asymmetric"), (NF + ("args", "lang_layers"), 1),
+                   (NF + ("args", "vis_dropout"), 0.2)],
+    "space_time": [(NF + ("type",), "space_time"), (NF + ("args", "activ_f"), "relu")],
+    "shared_sum_learned": [(NF + ("share_encoders",), True), (NF + ("forward_language_f",), "sum"),
+                           (NF + ("pos_embedding",), "learned")],
+    "direct_sin2d_no_replace": [(NF + ("forward_language_f",), "direct"),
+                                (NF + ("pos_embedding",), "sin2d"),
+                                (NF + ("replace_fpn_features",), False)],
+    "zero_no_final_norm": [(NF + ("pos_embedding",), "zero"), (NF + ("args", "final_norm"), None)],
+    "lm_cli": [(("run", "criterion", "lm"), 1), (("run", "criterion", "lm_decay"), 0.8),
+               (NF + ("lm_args",), {"pooling": {"type": "mean", "ln": True, "repr_size": 0},
+                                    "multi": False, "use_lm_f": True})],
+    "lm_max_sep": [(("run", "criterion", "lm"), 1),
+                   (NF + ("lm_args",), {"pooling": {"type": "max", "ln": False}, "multi": "sep"})],
+    "slowfast_embedding": [(("run", "narration_embeds", "slowfast_f_v"), True),
+                           (NF + ("narr_out_mode",), "embedding")],
+    "res50_f": [(("run", "narration_embeds", "res50_f"), True)],
+}
+
+
+@pytest.mark.parametrize("case", list(FUSION_OPTIONS))
+def test_build_transfusion_config_accepts_the_fusion_options(case):
+    """Every fusion option and the LM head map as JAX's
+    build_transfusion_config maps them, field by field, and the model
+    builds on the CPU; the clip features' width follows the flag."""
+    import jax.numpy as jnp
+
+    from transfusion_torch.models import transfusion as t_tf
+    from transfusion_tpu.models import transfusion as j_tf
+
+    cfg = _flagship_with(*FUSION_OPTIONS[case])
+    cfg["model"]["stage_sizes"] = [1, 1, 1, 1]
+    cfg["run"]["narration_embeds"]["args"]["model_v"] = "minilm-tiny"
+    cfg["run"]["narr_fusion"]["args"].update(input_f_size=32, num_heads=2, num_layers=[1, 1, 1, 1])
+    got = t_tf.build_transfusion_config(cfg, 88, 75)
+    _fields_match(got, j_tf.build_transfusion_config(cfg, 88, 75, dtype=jnp.float32))
+    assert got.visual_feature_dim == (2048 if case == "res50_f" else 2304)
+    model = t_tf.TransFusion(got, device="cpu")
+    assert hasattr(model, "lm_layer") or hasattr(model, "lm_layers") or not got.lm_on
+
+
+@pytest.mark.parametrize("changes", [
+    [(NF + ("type",), "heatmap")],
+    [(NF + ("type",), "asymmetric"), (NF + ("share_encoders",), True)],
+    [(NF + ("type",), "space_time"), (("run", "narration_embeds", "slowfast_f_v"), True)],
+])
+def test_build_transfusion_config_raises_what_jax_raises(changes):
+    """An unknown fusion type, and a shared stack or clip features on
+    another family than cross_transformer, raise JAX's ValueError."""
+    import jax.numpy as jnp
+
+    from transfusion_torch.models import transfusion as t_tf
+    from transfusion_tpu.models import transfusion as j_tf
+
+    cfg = _flagship_with(*changes)
+    with pytest.raises(ValueError) as want:
+        j_tf.build_transfusion_config(cfg, 88, 75, dtype=jnp.float32)
+    with pytest.raises(ValueError) as got:
+        t_tf.build_transfusion_config(cfg, 88, 75)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("case", ["both_clip_flags", "lang_deeper_than_vis", "no_lang_layers"])
+def test_fusion_options_jax_cannot_run_are_refused_at_build(case):
+    """Where JAX fails only when it runs, the port refuses at build: both
+    clip flags (JAX's layer takes F from whichever features the batch
+    holds), and an asymmetric level with more language than visual layers
+    or none (JAX's loop indexes a missing layer)."""
+    from transfusion_torch.models import transfusion as t_tf
+
+    changes = {"both_clip_flags": [(("run", "narration_embeds", "slowfast_f_v"), True),
+                                   (("run", "narration_embeds", "res50_f"), True)],
+               "lang_deeper_than_vis": [(NF + ("type",), "asymmetric"),
+                                        (NF + ("args", "lang_layers"), 3)],
+               "no_lang_layers": [(NF + ("type",), "asymmetric"), (NF + ("args", "lang_layers"), 0)]}
+    cfg = _flagship_with(*changes[case])
+    cfg["model"]["stage_sizes"] = [1, 1, 1, 1]
+    cfg["run"]["narration_embeds"]["args"]["model_v"] = "minilm-tiny"
+    cfg["run"]["narr_fusion"]["args"].update(input_f_size=32, num_heads=2, num_layers=[2, 2, 2, 2])
+    with pytest.raises(ValueError, match="one clip-feature source" if case == "both_clip_flags"
+                       else "1 <= lang_layers <= vis_layers"):
+        t_tf.TransFusion(t_tf.build_transfusion_config(cfg, 88, 75), device="cpu")
 
 
 def test_flash_head_dim_is_checked_when_the_model_is_built():
@@ -183,7 +280,7 @@ def data(env):
     from transfusion_torch.runner.trainer import build_trainer_data
     from transfusion_tpu.runner.trainer import EgoNaoTrainer as JTrainer
 
-    cfg = _derived(t_config, os.path.join(env["code"], "port_run_cfg.yml"))
+    cfg = _derived(t_config, os.path.join(env["code"], "run_cfg.yml"))
     port = build_trainer_data(cfg)
     ref = JTrainer.__new__(JTrainer)
     ref.config, ref.run, ref.debug = cfg, cfg["run"], False
@@ -270,3 +367,29 @@ def test_loader_batches_match_jax_bit_for_bit(data, training):
     t_loader.close()
     j_loader.close()
     assert len(buckets) == (2 if training else 1)
+
+
+def test_clip_features_reach_the_batch_as_in_jax(data):
+    """A dataset with a clip-feature lookup (uids it lacks zero-filled at
+    [6, 2304]) gives the JAX loader's eval batches, visual_features
+    included, and the trainer puts them on the device with the images."""
+    from transfusion_torch.data.loader import DataLoader as TLoader
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+    from transfusion_tpu.data.loader import DataLoader as JLoader
+
+    port, ref = data
+    uids = list(port.val_ds.annots.index)
+    rng = np.random.default_rng(15)
+    lookup = {u: rng.normal(0, 1, (6, 2304)).astype(np.float32) for u in uids[::2]}
+    t_ds = dataclasses.replace(port.val_ds, visual_features_lookup=lookup)
+    j_ds = dataclasses.replace(ref.val_ds, visual_features_lookup=lookup)
+    kw = dict(training=False, seed=3, lang_max_length=16, drop_last=False)
+    got = list(TLoader(t_ds, 3, tokenizer=port.tokenizer, **kw))
+    want = list(JLoader(j_ds, 3, tokenizer=ref.tokenizer, **kw))
+    assert len(got) == len(want) and all("visual_features" in b for b in got)
+    for a, b in zip(got, want):
+        _same(a, b)
+    trainer = EgoNaoTrainer.__new__(EgoNaoTrainer)
+    trainer.device = torch.device("cpu")
+    on_device = trainer._device_batch(got[0])
+    _same(on_device["visual_features"].numpy(), got[0]["visual_features"])

@@ -327,17 +327,19 @@ def test_nms_matches_jax_slot_by_slot(rng, block):
 def _port_files():
     pkg = os.path.join(REPO, "transfusion_torch")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
-        os.path.join(REPO, "scripts", f) for f in ("ab_attention_fwd.py", "ab_roi_align.py", "ab_layer_norm.py")]
+        os.path.join(REPO, "scripts", f) for f in ("ab_attention_fwd.py", "ab_roi_align.py", "ab_layer_norm.py",
+                                                   "ab_fusion_norms.py")]
     for root, dirs, names in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "_build"]  # kernel build output, not package source
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     return files
 
 
-# The trainer slice's modules, each of which the scan must reach.
+# The trainer slice's and the fusion options' modules, each of which the scan must reach.
 TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", "data/labels.py",
                    "data/annotations.py", "data/splits.py", "data/transforms.py",
-                   "data/dataset.py", "data/loader.py", "models/transfusion.py", "train/step.py",
+                   "data/dataset.py", "data/loader.py", "models/transfusion.py", "models/fusion.py",
+                   "models/fusion_variants.py", "train/losses.py", "weights.py", "train/step.py",
                    "train/optim.py", "metrics/sta_map.py", "runner/export.py",
                    "train/checkpoint.py", "runner/trainer.py", "runner/run_experiment.py")
 

@@ -244,6 +244,33 @@ def test_state_dict_round_trips_through_the_translator(golden):
         np.testing.assert_array_equal(np.asarray(flat_got[path]), np.asarray(want), err_msg=str(path))
 
 
+def test_lm_head_state_dict_round_trips_through_the_translator(golden):
+    """With the LM head on, the port's lm_layer.{ln,mlp_noun,mlp_verb}
+    cross into the JAX tree through translate_reference_checkpoint (every
+    key translated, none left over) and back through state_dict_from_jax,
+    bit for bit."""
+    import dataclasses
+
+    from transfusion_torch.weights import init_random_
+    from transfusion_tpu.tools.translate_checkpoint import translate_reference_checkpoint
+
+    jmodel = type(golden["model"])(dataclasses.replace(golden["cfg"], lm_on=True))
+    batch = dict(golden["batch"], image_hw=golden["hw"])
+    shapes = jax.eval_shape(lambda k: jmodel.init({"params": k}, batch, False), jax.random.key(0))["params"]
+    assert set(shapes["lm_layer"]) == {"ln", "mlp_noun", "mlp_verb"}
+    port = init_random_(TransFusion(dataclasses.replace(_port_cfg(), lm_on=True), device="cpu"), seed=2)
+    tree, report = translate_reference_checkpoint(
+        port.state_dict(), jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), shapes),
+        fpn_features=(2, 3), patch_hw=((2, 2), (1, 1)))
+    assert not report["unmatched_source"] and not report["missing_target"] and not report["shape_mismatch"]
+    assert report["translated"] == len(jax.tree.leaves(shapes))
+    back = state_dict_from_jax(tree)
+    want = port.state_dict()
+    assert set(back) == set(want)
+    for k, v in back.items():
+        assert torch.equal(v, want[k]), k
+
+
 def test_state_dict_from_jax_refuses_the_s2d_stem(golden):
     params = jax.tree.map(np.asarray, golden["params"]["params"])
     bb = dict(params["rcnn"]["backbone"])

@@ -9,6 +9,9 @@ three) and the flash gate lowered so that the tiny fusion sequence takes
 K2's path with its seed; the samplers' draws are passed in, so only dropout
 can tell two steps apart."""
 
+import dataclasses
+
+import pytest
 import torch
 
 from transfusion_torch.models import fusion
@@ -90,3 +93,45 @@ def test_train_step_replays_from_seed_and_step(monkeypatch):
                  "cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight",
                  "tokens_to_features.0.linear.weight", "roi_heads.noun_classifier.weight"):
         assert not torch.equal(first[name], later[name]), name
+
+
+@pytest.mark.parametrize("family, fusion_kw, model_kw, watched", [
+    ("asymmetric", dict(fusion_type="asymmetric", asymm_lang_layers=1), dict(lm_on=True),
+     "cross_fusion_encoders.0.lang_layers.0.q_proj.weight"),
+    ("space_time", dict(fusion_type="space_time"), {},
+     "cross_fusion_encoders.0.encoder.layers.0.temporal.linear1.weight"),
+])
+def test_fusion_option_steps_replay_from_seed_and_step(family, fusion_kw, model_kw, watched):
+    """The new families' dropout sites (the QKV layers' four, the
+    space-time layers', their patch and back-projection dropouts; the clip
+    fusion's layers are the EncoderLayer the test above covers) draw from
+    the step's DropoutRNG too: the same (seed, step) gives the same
+    parameters with torch's global generators disturbed, another step moves
+    a new layer elsewhere."""
+    base, cfg = _model()
+    cfg = dataclasses.replace(cfg, fusion=dataclasses.replace(cfg.fusion, **fusion_kw), **model_kw)
+    model = init_random_(TransFusion(cfg, device="cpu"), seed=3)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(6)
+    batch = _batch(gen)
+    with torch.no_grad():
+        anchors = model(batch)["proposals"]["anchors"].shape[0]
+    n_roi = cfg.detector.rpn.post_nms_top_n_train + 2
+    draws = {"roi": tuple(torch.rand(B, n_roi, generator=gen) for _ in range(2)),
+             "rpn": tuple(torch.rand(B, anchors, generator=gen) for _ in range(2))}
+    lw = criterion_weights({"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "lm": 1})
+
+    def step(at: int, disturb: int):
+        model.load_state_dict(start)
+        tx, _ = make_optimizer({"name": "radam", "lr": 1e-3}, None, 10)
+        state = TrainState(step=at, opt_state=tx.init(dict(model.named_parameters())), seed=11)
+        fn = make_train_step(model, tx, LossConfig(lm_on=cfg.lm_on, rpn_batch_size_per_image=16,
+                                                   last_noun_idx=6), torch.ones(7), torch.ones(5))
+        torch.manual_seed(disturb)
+        torch.rand(disturb)
+        assert fn(state, batch, lw, None, draws)["nonfinite_skipped"] == 0.0
+        return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    first, again, later = step(3, 1), step(3, 2), step(4, 1)
+    assert all(torch.equal(first[k], again[k]) for k in first), family
+    assert not torch.equal(first[watched], later[watched]), watched

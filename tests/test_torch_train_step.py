@@ -1,6 +1,7 @@
 """The port's train step against the JAX package's ``make_train_step`` on the
 CPU, in f32, on a tiny model (ResNet stages (1, 1, 1, 1), fusion at FPN
-level 2 with 2x2 patches of 32-dim tokens, a 2-layer BERT) with every
+level 2 with 2x2 patches of 32-dim tokens, a 2-layer BERT, the LM head on
+the fused language tokens with its loss in the criterion) with every
 dropout rate 0. One fusion level keeps the one JAX compile short; the
 levels share their code, and test_torch_slice.py holds all four.
 
@@ -39,7 +40,7 @@ MODEL_CFG = {"type": "res50", "train_ep": 0, "trainable_layers": 3}
 OPT_CFG = {"name": "radam", "lr": 1e-3, "weight_decay": 1e-4,
            "sep_encoders": {"div_rate": 4, "ttc_rate": 10}}
 SCHED_CFG = {"use": True, "name": "multistep", "milestones": [1], "gamma": 0.5}
-CRITERION = {"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "ttc": 0.5}
+CRITERION = {"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "ttc": 0.5, "lm": 1}
 
 
 def _configs(stop_grad: int):
@@ -61,7 +62,7 @@ def _configs(stop_grad: int):
                                    token_dropout=0.0, patch_dropout=0.0, backproj_dropout=0.0),
             bert=txt.BertConfig(vocab_size=64, hidden_size=16, num_layers=2, num_heads=2,
                                 intermediate_size=32, max_position_embeddings=16, dropout=0.0),
-            out_mlp=32, out_dropout=0.0)
+            out_mlp=32, out_dropout=0.0, lm_on=True)
 
     return build(jd, jr, jrpn, jt, jtf), build(td, tr, trpn, tt, ttf)
 
@@ -116,7 +117,7 @@ def pair():
     jtx, _ = j_opt(OPT_CFG, SCHED_CFG, steps_per_epoch=1, grad_clip=4.0)
     mult = j_mult(shapes, 0, MODEL_CFG, 0, 1, 2)
     nw, vw = np.linspace(0.5, 1.5, 7), np.linspace(0.7, 1.3, 5)
-    loss_kw = dict(ttc_on=True, rpn_batch_size_per_image=16, last_noun_idx=6)
+    loss_kw = dict(ttc_on=True, lm_on=True, rpn_batch_size_per_image=16, last_noun_idx=6)
     jstep = j_step(jmodel, jtx, JLoss(**loss_kw), *j_weights(nw, vw, 1.0, True, True), donate=False)
     # The one JAX program of the module, lowered from shapes alone and
     # compiled (at XLA's lowest backend optimisation level: the same
@@ -222,7 +223,7 @@ def test_train_steps_match_jax(pair):
     tm = pair["tstep"](pair["tstate"], pair["tbatch"], lw, mult, draws)
     assert tm["nonfinite_skipped"] == 0.0 and float(jm["nonfinite_skipped"]) == 0.0
     for key in ("loss", "bbox_loss", "objectness_loss", "loss_rpn_box_reg", "noun_loss",
-                "verb_loss", "ttc_loss"):
+                "verb_loss", "ttc_loss", "lm_loss"):
         np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-4, atol=1e-6,
                                    err_msg=key)
     want = state_dict_from_jax(jax.device_get(jstate.params))

@@ -21,10 +21,9 @@ from tests.fixtures import make_synthetic_ego4d
 from tests.test_runner_cli import FUSION_CFG, MODEL_CFG, RUN_CFG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The mini YAMLs without the lm criterion (no LM head in the port yet) and
-# with patches that fit the 64x80 bucket's stride-16 and -32 maps (4x5 and
-# 2x3): the fusion YAML's (4, 4) would patch the 2x3 map with a 4x4 kernel.
-PORT_RUN_CFG = RUN_CFG.replace("    lm: 1\n", "    lm: 0\n")
+# The mini fusion YAML with patches that fit the 64x80 bucket's stride-16
+# and -32 maps (4x5 and 2x3): the fusion YAML's (4, 4) would patch the 2x3
+# map with a 4x4 kernel. The run YAML is the JAX CLI's, LM head on.
 PORT_FUSION_CFG = FUSION_CFG.replace("patch_h: [4, 4, 2, 1]", "patch_h: [2, 1]").replace(
     "patch_w: [4, 4, 2, 1]", "patch_w: [2, 1]")
 
@@ -141,7 +140,7 @@ def cli_env(tmp_path, monkeypatch):
                          fh=216, fw=288)
     (code / "mini_model.yml").write_text(MODEL_CFG)
     (code / "mini_fusion.yml").write_text(PORT_FUSION_CFG)
-    (code / "run_cfg.yml").write_text(PORT_RUN_CFG)
+    (code / "run_cfg.yml").write_text(RUN_CFG)
     for name, path in (("CODE", code), ("DATA", data), ("RUNS", runs)):
         monkeypatch.setenv(name, str(path))
     monkeypatch.delenv("TOKENIZER_VOCAB", raising=False)
@@ -159,9 +158,10 @@ def _cli(cli_env, capsys, *args):
 
 
 def test_cli_train_val_export_resume(cli_env, capsys):
-    """The port's CLI on the tiny config: one epoch with validation, the
-    challenge JSON, a checkpoint and best.json; then --run-val resumed from
-    the checkpoint exports the same results and the same metrics."""
+    """The port's CLI on the tiny config, LM head on: one epoch with
+    validation, the challenge JSON, a checkpoint (the LM head's weights in
+    it) and best.json; then --run-val resumed from the checkpoint exports
+    the same results and the same metrics."""
     run_dir = os.path.join(cli_env["runs"], "itest")
     _cli(cli_env, capsys, "--run-dir", run_dir, "--epochs", "1")
     history = [json.loads(line) for line in open(os.path.join(run_dir, "history.jsonl"))]
@@ -169,6 +169,7 @@ def test_cli_train_val_export_resume(cli_env, capsys):
     rec = history[0]
     assert np.isfinite(rec["train_loss"]) and rec["train_steps"] == 2
     assert rec["train_nonfinite_skipped"] == 0.0
+    assert rec["train_lm_loss"] > 0.0 and rec["val_lm_loss"] > 0.0
     assert "map_box_noun_verb_val" in rec and 0.0 <= rec["map_box_noun_verb_val"] <= 100.0
     assert all(np.isfinite(v) for k, v in rec.items() if k.startswith("val_"))
     files = os.listdir(os.path.join(run_dir, "results"))
@@ -181,6 +182,8 @@ def test_cli_train_val_export_resume(cli_env, capsys):
             assert set(e) == {"box", "noun_category_id", "verb_category_id", "time_to_contact", "score"}
     ckpt = os.path.join(run_dir, "checkpoints", "epoch_0000")
     assert os.path.isdir(ckpt)
+    saved = torch.load(os.path.join(ckpt, "state.pt"), map_location="cpu", weights_only=True)["model"]
+    assert {"lm_layer.ln.weight", "lm_layer.mlp_noun.weight", "lm_layer.mlp_verb.weight"} <= set(saved)
     best = json.load(open(os.path.join(run_dir, "checkpoints", "best.json")))
     assert best["metric"] == "map_box_noun_verb_ttc_val" and best["path"] == ckpt
 

@@ -99,6 +99,10 @@ class EgoNaoDataset:
     narration_lookup: dict[str, str]
     uid_col: str = "video_uid"
     verb_bg: bool = True
+    # Optional uid -> [T, F] precomputed clip features (SlowFast/R50) for the
+    # clip-feature fusion; zero-filled where a uid is missing.
+    visual_features_lookup: object = None
+    visual_features_shape: tuple = (6, 2304)
 
     def __len__(self):
         return len(self.annots)
@@ -137,7 +141,7 @@ class EgoNaoDataset:
         orig_shape = img.shape[:2]
         image, boxes = transform_example(rng, img, row["Bboxes"], self.aug, bucket, training)
         uid = row.name
-        return {
+        sample = {
             "image": image,
             "boxes": boxes,
             "nouns": np.array([self.noun_mapping[n] for n in row["all_nouns"]], np.int32),
@@ -147,6 +151,12 @@ class EgoNaoDataset:
             "orig_shape": orig_shape,
             "narration": self.narration_lookup.get(uid, ""),
         }
+        if self.visual_features_lookup is not None:
+            feats = self.visual_features_lookup.get(uid)
+            if feats is None:
+                feats = np.zeros(self.visual_features_shape, np.float32)
+            sample["visual_features"] = np.asarray(feats, np.float32)
+        return sample
 
 
 def collate(samples: list[dict], tokenizer=None, lang_max_length: int = 128) -> dict:
@@ -192,5 +202,7 @@ def collate(samples: list[dict], tokenizer=None, lang_max_length: int = 128) -> 
             ids, mask = tokenizer.encode_batch(texts, lang_max_length)
         batch["input_ids"] = ids
         batch["attention_mask"] = mask
+    if "visual_features" in samples[0]:
+        batch["visual_features"] = np.stack([s["visual_features"] for s in samples])
     return batch
 

@@ -1,5 +1,5 @@
 """BERT/MiniLM encoder and the narration pooling layer (port of
-``transfusion_tpu/models/text_encoder.py``, tokens mode). Training mode
+``transfusion_tpu/models/text_encoder.py``, tokens and embedding modes). Training mode
 turns on the JAX modules' dropout sites (embeddings, attention
 probabilities, attention and feed-forward outputs, after ``out_mlp``).
 
@@ -214,20 +214,25 @@ class _SentenceTransformer(nn.Module):
 
 
 class NarrationEncoder(nn.Module):
-    """SBertLayer in tokens mode: BERT tokens -> out_mlp. Returns (tokens,
+    """SBertLayer: BERT tokens (``out_mode`` "tokens") or their masked mean,
+    L2-normalised (norm clipped at 1e-12; "embedding") -> out_mlp ->
+    dropout. Returns (tokens [B, L, D] or the sentence vector [B, D],
     attention_mask). Keys: ``encoder.0.auto_model.*`` and ``out_mlp``."""
 
     def __init__(self, c: BertConfig, out_mlp: int | None = 896, dtype=torch.float32,
-                 out_dropout: float = 0.1):
+                 out_dropout: float = 0.1, out_mode: str = "tokens"):
         super().__init__()
-        self.dtype, self.out_dropout = dtype, out_dropout
+        self.dtype, self.out_dropout, self.out_mode = dtype, out_dropout, out_mode
         self.encoder = nn.ModuleList([_SentenceTransformer(c, dtype)])
         self.out_mlp = (
             nn.Linear(c.hidden_size, out_mlp) if out_mlp and out_mlp != c.hidden_size else None
         )
 
     def forward(self, input_ids, attention_mask, rng=None):
-        tokens = self.encoder[0].auto_model(input_ids, attention_mask, rng)
+        out = self.encoder[0].auto_model(input_ids, attention_mask, rng)
+        if self.out_mode == "embedding":
+            out = mean_pool(out, attention_mask)
+            out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-12)
         if self.out_mlp is not None:
-            tokens = linear(tokens, self.out_mlp, self.dtype)
-        return dropout(tokens, self.out_dropout, self.training, rng), attention_mask
+            out = linear(out, self.out_mlp, self.dtype)
+        return dropout(out, self.out_dropout, self.training, rng), attention_mask

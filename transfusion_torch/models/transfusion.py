@@ -1,15 +1,22 @@
 """The TransFusion model: Faster R-CNN + narration encoder + per-level
-fusion (port of ``transfusion_tpu/models/transfusion.py``: the
-``cross_transformer`` fusion with the ``sbert`` text encoder in ``tokens``
-mode and no LM head, the flagship's path, for eval, validation with losses
-and training), and ``build_transfusion_config`` from a derived run config.
+fusion + the LM auxiliary head (port of
+``transfusion_tpu/models/transfusion.py``: the ``cross_transformer``,
+``asymmetric`` and ``space_time`` fusion families, the encoder stack shared
+across levels, clip-feature early fusion, every positional kind, language
+forwarding across levels, the sbert text encoder in tokens or embedding
+mode, and the LM head, for eval, validation with losses and training), and
+``build_transfusion_config`` from a derived run config.
 
 ``TransFusion`` subclasses :class:`FasterRCNN` so its state dict has the
 reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
 ``patches_to_token.i``, ``tokens_to_features.i``,
-``cross_fusion_encoders.i``, ``narr_pooling_layer.*``). ``forward`` takes
+``cross_fusion_encoders.i``, ``narr_pooling_layer.*``, ``lm_layer.*``), and,
+where JAX's tree has no reference name, names after JAX's modules
+(``shared_t_encoder.layers.j`` for ``shared_layer_j``, ``vis_fusion.i`` for
+``vis_fusion_<lvl>``, ``lm_layers.i`` for ``lm_layer_i``). ``forward`` takes
 the JAX batch contract: ``image [B, H, W, 3]``, ``input_ids``,
-``attention_mask``, ``image_hw`` and, to train, ``targets``. As in JAX,
+``attention_mask``, ``image_hw``, ``visual_features [B, T, F]`` for the
+clip-feature fusion and, to train, ``targets``. As in JAX,
 ``forward(batch, train=True)`` assigns targets and samples RoIs; dropout
 follows the module's ``.train()`` / ``.eval()`` mode and draws from the
 ``rng`` (a ``text_encoder.DropoutRNG``) the train step passes.
@@ -26,16 +33,24 @@ from torch import nn
 
 from transfusion_torch.device import resolve_device
 from transfusion_torch.models.detector import DetectorConfig, FasterRCNN
-from transfusion_torch.models.fusion import CrossFusionLevel, RegroupPatches
+from transfusion_torch.models.fusion import (
+    CrossFusionLevel, EncoderLayer, PoolPredictor, RegroupPatches, _TEncoder)
+from transfusion_torch.models.fusion_variants import (
+    AsymmetricCrossFusionLevel, SpaceTimeFusionLevel, VisualFeatureFusion)
 from transfusion_torch.models.resnet import RESNET50_CHANNELS
 from transfusion_torch.models.roi_heads import RoIConfig
 from transfusion_torch.models.rpn import RPNConfig
 from transfusion_torch.models.text_encoder import BertConfig, NarrationEncoder
 from transfusion_torch.ops.attention import BF16_HEAD_DIMS
 
+FUSION_TYPES = ("cross_transformer", "space_time", "asymmetric")
+# The clip features' width (VisLangFusionBoxWrapper): SlowFast 2304, ResNet-50 2048.
+CLIP_FEATURE_DIMS = {"slowfast_f_v": 2304, "res50_f": 2048}
+
 
 @dataclass(frozen=True)
 class FusionConfig:
+    # The fusion YAML's type: key (get_cross_box_encoder dispatch).
     fusion_type: str = "cross_transformer"
     fpn_features: tuple = (0, 1, 2, 3)
     patch_h: tuple = (4, 4, 2, 1)
@@ -44,11 +59,21 @@ class FusionConfig:
     token_dim: int = 896
     num_heads: int = 4
     ff_multiplier: float = 2.0
-    vis_mask_type: str = "global"
-    use_flash_attention: bool = False
     token_dropout: float = 0.15
     patch_dropout: float = 0.1
     backproj_dropout: float = 0.1
+    pos_embedding: str = "sin1d"  # sin1d | sin2d | learned | zero
+    final_norm: str = "ln"        # "ln", or none
+    activation: str = "gelu"      # gelu, or relu for any other name
+    vis_mask_type: str = "global"
+    forward_language_f: object = False  # False | "direct" | "sum"
+    replace_fpn_features: bool = True
+    share_encoders: bool = False  # one stack of num_layers[0] layers for every level
+    use_flash_attention: bool = False
+    # The asymmetric family: language depth and the two streams' dropouts.
+    asymm_lang_layers: int = 2
+    asymm_vis_dropout: float = 0.1
+    asymm_lang_dropout: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -57,11 +82,42 @@ class TransFusionConfig:
     fusion: FusionConfig = field(default_factory=FusionConfig)
     bert: BertConfig = field(default_factory=BertConfig.minilm_l12)
     text_encoder: str = "sbert"
+    # "tokens" feeds per-token features to the fusion; "embedding" one pooled
+    # sentence vector as a single fully attended language token.
     narr_out_mode: str = "tokens"
     out_mlp: int | None = 896
     out_dropout: float = 0.1
     lm_on: bool = False
+    lm_pooling: str = "mean"
+    lm_use_ln: bool = True
+    # False: one head on the last level's fused language; True: one head
+    # averaged over every level's; "sep": a head per level, averaged.
+    lm_multi: object = False
+    # Classify the language features the last level was given instead.
+    lm_use_f: bool = False
+    # Clip-feature early fusion: batch["visual_features"] [B, T, F] fuses
+    # with each level's patch tokens before the language stage.
+    use_visual_features: bool = False
+    visual_feature_layers: int = 2
+    # The clip flag that is on: it fixes F, which JAX's layer reads from the
+    # batch and the port's needs at build (visual_feature_dim).
+    clip_features: str = "slowfast_f_v"
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.clip_features not in CLIP_FEATURE_DIMS:
+            raise ValueError(f"clip_features={self.clip_features!r}: one of {list(CLIP_FEATURE_DIMS)}")
+
+    @property
+    def visual_feature_dim(self) -> int:
+        return CLIP_FEATURE_DIMS[self.clip_features]
+
+
+def _mean_lm_outs(outs: list) -> dict:
+    """Per-level LM logits averaged (MultiPoolPredictor[Sep])."""
+    verb = outs[0]["verb_logits"]
+    return {"noun_logits": sum(o["noun_logits"] for o in outs) / len(outs),
+            "verb_logits": None if verb is None else sum(o["verb_logits"] for o in outs) / len(outs)}
 
 
 def flagship_config() -> TransFusionConfig:
@@ -78,7 +134,9 @@ def flagship_config() -> TransFusionConfig:
             stop_grad_stages=5,
             dtype=dt,
         ),
-        fusion=FusionConfig(use_flash_attention=True),
+        # The asymmetric dropouts default to token_dropout in the mapping.
+        fusion=FusionConfig(use_flash_attention=True, asymm_vis_dropout=0.15,
+                            asymm_lang_dropout=0.15),
         bert=BertConfig.minilm_l12(),
         out_mlp=896,
         dtype=dt,
@@ -89,12 +147,11 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
                              dtype=torch.float32) -> TransFusionConfig:
     """Map a derived reference-format config dict (see ``config.derive``)
     onto TransFusionConfig, as ``transfusion_tpu/models/transfusion.py:468``
-    does, for the options the port builds: a ResNet-50 family trunk with
-    frozen BN and the plain stem, the ``cross_transformer`` fusion with
-    sin1d positions, LayerNorm, GELU, replaced FPN maps and no language
-    forwarding, the sbert/MiniLM text tower in tokens mode, and the linear
-    TTC head. Every other option raises NotImplementedError naming it.
-    Flash attention is on unless the fusion args turn it off, as in JAX."""
+    does, with its ValueErrors. The port builds a ResNet-50 family trunk with
+    frozen BN and the plain stem, every fusion family and option, the
+    sbert/MiniLM text tower in tokens or embedding mode, the LM head and the
+    linear TTC head. Every other option raises NotImplementedError naming
+    it. Flash attention is on unless the fusion args turn it off, as in JAX."""
     run, model = config["run"], config["model"]
     rcnn_kwargs = model.get("rcnn_kwargs", {})
     narr = run["narration_embeds"]
@@ -111,28 +168,31 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         ("model.s2d_stem", bool(model.get("s2d_stem", False)), False),
         ("model.ttc_hand_head.use",
          bool(criterion.get("ttc", 0) and (model.get("ttc_hand_head") or {}).get("use")), False),
-        ("run.criterion.lm", bool(criterion.get("lm", 0)), False),
         ("run.narration_embeds.use", bool(narr.get("use", True)), True),
-        ("run.narration_embeds.res50_f / slowfast_f_v",
-         bool(narr.get("res50_f", False) or narr.get("slowfast_f_v", False)), False),
         ("narration_embeds.args.pooling", narr_args.get("pooling") == "sbert", False),
         ("narration_embeds.args.text_pooling", text_pooling, "sbert_finetune"),
         ("narration_embeds.args.model_v",
          model_v.startswith(("t5-", "flan-t5-")) or model_v == "distilgpt2", False),
         ("narration_embeds.args.out_tanh", bool(narr_args.get("out_tanh", False)), False),
         ("narration_embeds.args.type_embeddings", tuple(narr_args.get("type_embeddings") or ()), ()),
-        ("narr_fusion.type", fusion_cfg.get("type", "cross_transformer"), "cross_transformer"),
-        ("narr_fusion.narr_out_mode", fusion_cfg.get("narr_out_mode", "tokens"), "tokens"),
-        ("narr_fusion.share_encoders", bool(fusion_cfg.get("share_encoders", False)), False),
-        ("narr_fusion.pos_embedding", fusion_cfg.get("pos_embedding", "sin1d"), "sin1d"),
-        ("narr_fusion.forward_language_f", fusion_cfg.get("forward_language_f", False), False),
-        ("narr_fusion.replace_fpn_features", fusion_cfg.get("replace_fpn_features", True), True),
-        ("narr_fusion.args.final_norm", fargs.get("final_norm", "ln"), "ln"),
-        ("narr_fusion.args.activ_f", fargs.get("activ_f", "gelu"), "gelu"),
     ]
     for option, value, supported in unported:
         if value != supported:
             raise NotImplementedError(f"{option}={value!r} is not ported yet")
+    fusion_type = fusion_cfg.get("type", "cross_transformer")
+    if fusion_type not in FUSION_TYPES:
+        raise ValueError(f"cross_type={fusion_type!r} not implemented")
+    clip = [k for k in CLIP_FEATURE_DIMS if narr.get(k, False)]
+    if len(clip) > 1:
+        # JAX's layer would take F from whichever clip features the batch holds.
+        raise ValueError(f"narration_embeds: one clip-feature source, not {clip}")
+    if fusion_type != "cross_transformer":
+        if fusion_cfg.get("share_encoders"):
+            raise ValueError("share_encoders is a cross_transformer-wrapper feature "
+                             "(CrossFusionBoxWrapperShared, cross_f_box_wrapper.py:305)")
+        if clip:
+            raise ValueError("clip-feature fusion subclasses the cross_transformer wrapper "
+                             "only (cross_f_box_vis_language_wrapper.py)")
     bert = BertConfig.minilm_l12()
     if model_v == "minilm-tiny":
         bert = BertConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
@@ -158,6 +218,10 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         dtype=dtype,
     )
     fus = FusionConfig(
+        fusion_type=fusion_type,
+        asymm_lang_layers=fargs.get("lang_layers", 2),
+        asymm_vis_dropout=fargs.get("vis_dropout", fargs.get("token_dropout", 0.1)),
+        asymm_lang_dropout=fargs.get("lang_dropout", fargs.get("token_dropout", 0.1)),
         fpn_features=tuple(fusion_cfg.get("fpn_features", (0, 1, 2, 3))),
         patch_h=tuple(fusion_cfg.get("patch_h", (4, 4, 2, 1))),
         patch_w=tuple(fusion_cfg.get("patch_w", (4, 4, 2, 1))),
@@ -168,12 +232,29 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         token_dropout=fargs.get("token_dropout", 0.1),
         patch_dropout=fargs.get("patch_dropout", 0.1),
         backproj_dropout=fusion_cfg.get("backproj_dropout", 0.1),
+        pos_embedding=fusion_cfg.get("pos_embedding", "sin1d"),
+        final_norm=fargs.get("final_norm", "ln"),
+        activation=fargs.get("activ_f", "gelu"),
         vis_mask_type=fusion_cfg.get("vis_mask_type", "global"),
+        forward_language_f=fusion_cfg.get("forward_language_f", False),
+        replace_fpn_features=fusion_cfg.get("replace_fpn_features", True),
+        share_encoders=bool(fusion_cfg.get("share_encoders", False)),
         use_flash_attention=bool(fargs.get("use_flash_attention", True)),
     )
+    lm_args = fusion_cfg.get("lm_args") or {}
+    pooling = lm_args.get("pooling", {})
     return TransFusionConfig(detector=det, fusion=fus, bert=bert,
+                             narr_out_mode=fusion_cfg.get("narr_out_mode", "tokens"),
                              out_mlp=narr_args.get("out_mlp"),
-                             out_dropout=narr_args.get("out_dropout", 0.1), dtype=dtype)
+                             out_dropout=narr_args.get("out_dropout", 0.1),
+                             lm_on=bool(criterion.get("lm", 0)),
+                             lm_pooling=pooling.get("type", "mean"),
+                             lm_use_ln=bool(pooling.get("ln", True)),
+                             lm_multi=lm_args.get("multi", False),
+                             lm_use_f=bool(lm_args.get("use_lm_f", False)),
+                             use_visual_features=bool(clip),
+                             clip_features=clip[0] if clip else TransFusionConfig.clip_features,
+                             dtype=dtype)
 
 
 def check_attention_head_dim(cfg: TransFusionConfig, device) -> None:
@@ -198,61 +279,147 @@ class TransFusion(FasterRCNN):
 
     def __init__(self, cfg: TransFusionConfig, device=None):
         dev = resolve_device(device)
-        if cfg.fusion.fusion_type != "cross_transformer":
-            raise NotImplementedError(f"fusion_type {cfg.fusion.fusion_type!r} is not ported yet")
-        if cfg.text_encoder != "sbert" or cfg.narr_out_mode != "tokens":
-            raise NotImplementedError("only the sbert text encoder in tokens mode is ported")
-        if cfg.lm_on:
-            raise NotImplementedError("the LM auxiliary head is not ported yet")
+        f, dt = cfg.fusion, cfg.dtype
+        if f.fusion_type not in FUSION_TYPES:
+            raise ValueError(f"cross_type={f.fusion_type!r} not implemented")
+        if cfg.text_encoder != "sbert":
+            raise NotImplementedError("only the sbert text encoder is ported")
         check_attention_head_dim(cfg, dev)
         super().__init__(cfg.detector, device=dev)
         self.tcfg = cfg
-        f, dt = cfg.fusion, cfg.dtype
-        self.narr_pooling_layer = NarrationEncoder(cfg.bert, cfg.out_mlp, dt, cfg.out_dropout)
-        token_dim = f.token_dim
+        self.narr_pooling_layer = NarrationEncoder(cfg.bert, cfg.out_mlp, dt, cfg.out_dropout,
+                                                   cfg.narr_out_mode)
+        cross = f.fusion_type == "cross_transformer"
+        d = f.token_dim
+        if cross and f.share_encoders:
+            self.shared_t_encoder = _TEncoder([
+                EncoderLayer(d, f.num_heads, f.ff_multiplier, dt, f.use_flash_attention,
+                             f.token_dropout, f.activation)
+                for _ in range(f.num_layers[0])])
+        if cross and cfg.use_visual_features:
+            self.vis_fusion = nn.ModuleList([
+                VisualFeatureFusion(d, cfg.visual_feature_dim, cfg.visual_feature_layers,
+                                    f.num_heads, dtype=dt)
+                for _ in f.fpn_features])
         self.patches_to_token = nn.ModuleList()
         self.tokens_to_features = nn.ModuleList()
         self.cross_fusion_encoders = nn.ModuleList()
         for i, lvl in enumerate(f.fpn_features):
             c = RESNET50_CHANNELS[str(lvl)]
             ph, pw = f.patch_h[i], f.patch_w[i]
-            self.patches_to_token.append(nn.Conv2d(c, token_dim, (ph, pw), stride=(ph, pw), bias=False))
-            self.tokens_to_features.append(RegroupPatches(token_dim, c, ph, pw))
-            self.cross_fusion_encoders.append(CrossFusionLevel(
-                token_dim, f.num_layers[i], f.num_heads, f.ff_multiplier, (ph, pw),
-                f.vis_mask_type, f.use_flash_attention, dt, f.token_dropout, f.patch_dropout,
-                f.backproj_dropout,
-            ))
+            self.patches_to_token.append(nn.Conv2d(c, d, (ph, pw), stride=(ph, pw), bias=False))
+            self.tokens_to_features.append(RegroupPatches(d, c, ph, pw))
+            if cross:
+                level = CrossFusionLevel(
+                    d, 0 if f.share_encoders else f.num_layers[i], f.num_heads, f.ff_multiplier,
+                    (ph, pw), f.vis_mask_type, f.use_flash_attention, dt, f.token_dropout,
+                    f.patch_dropout, f.backproj_dropout, f.pos_embedding, f.final_norm, f.activation)
+            elif f.fusion_type == "asymmetric":
+                # num_layers[i] is the visual depth.
+                level = AsymmetricCrossFusionLevel(
+                    d, f.num_layers[i], f.asymm_lang_layers, f.num_heads, f.ff_multiplier, (ph, pw),
+                    f.asymm_vis_dropout, f.asymm_lang_dropout, f.patch_dropout, f.pos_embedding,
+                    f.activation, dt)
+            else:
+                level = SpaceTimeFusionLevel(
+                    d, f.num_layers[i], f.num_heads, f.ff_multiplier, (ph, pw), f.token_dropout,
+                    f.patch_dropout, f.backproj_dropout, f.activation, f.pos_embedding,
+                    f.final_norm, dt)
+            self.cross_fusion_encoders.append(level)
+        if cfg.lm_on:
+            roi = cfg.detector.roi
+
+            def head():
+                return PoolPredictor(d, roi.num_nouns - 1, roi.num_verbs - 1, cfg.lm_pooling,
+                                     cfg.lm_use_ln, dt)
+
+            if cfg.lm_multi == "sep" and not cfg.lm_use_f:
+                self.lm_layers = nn.ModuleList([head() for _ in f.fpn_features])
+            else:
+                self.lm_layer = head()
         self.to(dev).eval()
 
-    def trunk(self, batch: dict, rng=None):
-        """Backbone -> per-level language fusion (each fused map replaces its
-        backbone map; every level sees the encoder's language tokens) -> FPN."""
+    def _trunk(self, batch: dict, rng=None):
+        """Backbone -> per-level language fusion -> FPN. Each level sees the
+        language the previous one forwards (``forward_language_f``: its
+        fused tokens "direct", or their "sum" with what it was given; the
+        encoder's tokens otherwise) and its fused map replaces the backbone
+        map (``replace_fpn_features``). Returns (FPN maps, the language
+        context of the LM head)."""
+        c, f = self.tcfg, self.tcfg.fusion
         feats = self.forward_features(batch["image"])
         dev = self.device
         lang, lang_mask = self.narr_pooling_layer(batch["input_ids"].to(dev),
                                                   batch["attention_mask"].to(dev), rng)
-        for i, lvl in enumerate(self.tcfg.fusion.fpn_features):
+        if lang.dim() == 2:
+            # Embedding mode: the sentence vector is one fully attended token.
+            lang = lang[:, None]
+            lang_mask = torch.ones((lang.shape[0], 1), dtype=lang_mask.dtype, device=dev)
+        vis_f = batch.get("visual_features") if c.use_visual_features else None
+        if vis_f is not None:
+            vis_f = vis_f.to(dev)
+        shared = getattr(self, "shared_t_encoder", None)
+        language_f, lang_out, mscale = lang, None, []
+        for i, lvl in enumerate(f.fpn_features):
             key = str(lvl)
-            feats[key] = self.cross_fusion_encoders[i](
-                feats[key], lang, lang_mask, self.patches_to_token[i], self.tokens_to_features[i], rng)
-        return self.apply_fpn(feats)
+            extra = {}
+            if f.fusion_type == "cross_transformer":
+                extra = {"shared_layers": None if shared is None else shared.layers,
+                         "vis_fusion": self.vis_fusion[i] if c.use_visual_features else None}
+            fused, lang_out = self.cross_fusion_encoders[i](
+                feats[key], language_f, lang_mask, self.patches_to_token[i], self.tokens_to_features[i],
+                rng, visual_features=vis_f, **extra)
+            mscale.append(lang_out)
+            if f.forward_language_f == "direct":
+                language_f = lang_out
+            elif f.forward_language_f == "sum":
+                language_f = language_f + lang_out
+            if f.replace_fpn_features:
+                feats[key] = fused
+        ctx = {"language_f": language_f, "lang_out": lang_out, "mscale_lang": mscale,
+               "lang_mask": lang_mask}
+        return self.apply_fpn(feats), ctx
+
+    def trunk(self, batch: dict, rng=None):
+        """The FPN maps of :meth:`_trunk`."""
+        return self._trunk(batch, rng)[0]
+
+    def _lm_outputs(self, ctx: dict) -> dict:
+        """The LM head's logits (get_lm_layer dispatch and use_lm_f)."""
+        c = self.tcfg
+        mask = ctx["lang_mask"].bool()
+        if c.lm_use_f:
+            return self.lm_layer(ctx["language_f"], mask)
+        if c.lm_multi == "sep":
+            return _mean_lm_outs([head(t, mask) for head, t in zip(self.lm_layers, ctx["mscale_lang"])])
+        if c.lm_multi:
+            return _mean_lm_outs([self.lm_layer(t, mask) for t in ctx["mscale_lang"]])
+        return self.lm_layer(ctx["lang_out"], mask)
 
     def forward(self, batch: dict, train: bool = False, draws=None, generator=None, rng=None):
-        """Returns {"roi_outputs", "proposals", "image_sizes"} (see
+        """Returns {"roi_outputs", "proposals", "image_sizes"[, "lm"]} (see
         ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws``, ``generator``
         and ``rng``)."""
-        return self.apply_rpn_roi(self.trunk(batch, rng), batch["image_hw"], batch.get("targets"),
-                                  train, draws, generator, rng)
+        fpn_feats, ctx = self._trunk(batch, rng)
+        out = self.apply_rpn_roi(fpn_feats, batch["image_hw"], batch.get("targets"), train, draws,
+                                 generator, rng)
+        if self.tcfg.lm_on:
+            out["lm"] = self._lm_outputs(ctx)
+        return out
 
     def eval_with_losses(self, batch: dict, draws=None, generator=None):
         """One eval forward giving {"eval": every proposal's RoI outputs, for
         the detections; "loss": the same trunk's RPN labels and sampled RoIs
         (``draws`` / ``generator`` as in ``apply_roi``), for the
-        validation losses}. Both branches take one set of eval proposals.
-        Dropout stays off (eval mode)."""
-        fpn_feats = self.trunk(batch)
+        validation losses}, each with the LM logits where the head is on.
+        Both branches take one set of eval proposals. Dropout stays off
+        (eval mode)."""
+        fpn_feats, ctx = self._trunk(batch)
         hw = batch["image_hw"]
         rpn_out = self.propose(fpn_feats, hw)
-        return {"eval": self.apply_roi(fpn_feats, rpn_out, hw),
-                "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator)}
+        out = {"eval": self.apply_roi(fpn_feats, rpn_out, hw),
+               "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator)}
+        if self.tcfg.lm_on:
+            lm = self._lm_outputs(ctx)
+            out["eval"]["lm"] = out["loss"]["lm"] = lm
+        return out

@@ -15,9 +15,9 @@ backward, so it refuses a CUDA input that requires grad while grad mode is
 on. :func:`layer_norm` is the differentiable form, JAX's ``custom_vjp``
 (``_fused_ln`` / ``_fused_res_ln``): K1 forward, and a closed-form backward
 in PyTorch from the saved input with recomputed f32 statistics
-(:func:`_ln_grads`). :class:`FusedLayerNorm` and the narration encoder's norms
-run it in training and in eval alike. (The JAX module trains with flax's
-LayerNorm, whose variance formula is the same.)
+(:func:`_ln_grads`). :class:`FusedLayerNorm`, :class:`FlaxLayerNorm` and the
+narration encoder's norms run it in training and in eval alike. (The JAX
+module trains with flax's LayerNorm, whose variance formula is the same.)
 """
 
 from __future__ import annotations
@@ -156,3 +156,19 @@ class FusedLayerNorm(nn.Module):
         if residual is not None:
             residual = residual.to(self.dtype).contiguous()
         return layer_norm(x, self.weight, self.bias, self.eps, residual)
+
+
+class FlaxLayerNorm(FusedLayerNorm):
+    """flax ``nn.LayerNorm(dtype=dtype)``, where the JAX model uses it rather
+    than its fused module: ``x`` (or ``x + residual``, both in their promoted
+    dtype, as JAX adds them) is normalised in its own dtype, with f32
+    statistics, and only the output is rounded to ``dtype``. An f32 stream
+    (bf16 tokens plus an f32 embedding) runs K1 in f32."""
+
+    def forward(self, x, residual=None):
+        if residual is not None:
+            dt = torch.promote_types(x.dtype, residual.dtype)
+            x, residual = x.to(dt), residual.to(dt).contiguous()
+        if row_layout(x) is None:
+            x = x.contiguous()
+        return layer_norm(x, self.weight, self.bias, self.eps, residual).to(self.dtype)

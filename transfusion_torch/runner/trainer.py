@@ -391,7 +391,8 @@ class EgoNaoTrainer:
             t = torch.from_numpy(np.asarray(x))
             return (t.long() if t.dtype == torch.int32 else t).to(self.device, non_blocking=True)
 
-        out = {k: put(batch[k]) for k in ("image", "input_ids", "attention_mask")}
+        out = {k: put(batch[k]) for k in ("image", "input_ids", "attention_mask", "visual_features")
+               if k in batch}
         if with_targets and "targets" in batch:
             out["targets"] = {k: put(v) for k, v in batch["targets"].items()}
         out["image_hw"] = tuple(int(v) for v in batch["image_hw"])

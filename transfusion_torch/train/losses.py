@@ -1,7 +1,8 @@
 """Training losses with static shapes (port of
 ``transfusion_tpu/train/losses.py:24-177``): smooth-L1 box loss (beta 1/9),
-the torchvision RPN loss over a fixed per-image sample, and the
-class-weighted cross entropies of the reference trainer. Every function
+the torchvision RPN loss over a fixed per-image sample, the
+class-weighted cross entropies of the reference trainer and the LM head's
+cross entropy. Every function
 takes validity masks: padded rows (label -1) drop out of the sums with the
 normalisations the dynamic-shape reference computes. The RPN sampler takes
 its uniform keys as ``draws`` (see :mod:`transfusion_torch.ops.matcher`).
@@ -103,6 +104,23 @@ def ttc_loss(ttc_preds, ttc_targets, verb_labels, beta: float, ttc_bg: bool = Fa
     count = valid.sum()
     total = torch.where(valid, losses, 0.0).sum()
     return torch.where(count > 0, total / torch.clamp(count, min=1), 0.0)
+
+
+def lm_loss(lm_outputs, targets, last_noun_idx: int):
+    """The LM auxiliary cross entropy: each image's first GT noun (the class
+    moved to ``last_noun_idx`` maps back to 0) and first GT verb, clipped to
+    the head's classes; the mean of the noun and verb CEs over images, in
+    the logits' dtype, returned in f32."""
+    def ce(logits, t):
+        logp = F.log_softmax(logits, dim=-1)
+        t = torch.clamp(t.to(logp.device).long(), 0, logp.shape[-1] - 1)
+        return -torch.gather(logp, -1, t[:, None]).mean()
+
+    noun_t = targets["nouns"][:, 0]
+    l_n = ce(lm_outputs["noun_logits"], torch.where(noun_t == last_noun_idx, 0, noun_t))
+    if lm_outputs.get("verb_logits") is None:
+        return l_n.float()
+    return ((l_n + ce(lm_outputs["verb_logits"], targets["verbs"][:, 0])) / 2.0).float()
 
 
 def build_class_weights(noun_weights, verb_weights, bg_weight: float, verb_bg: bool,

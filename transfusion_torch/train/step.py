@@ -84,11 +84,11 @@ def compute_losses(outputs, batch, loss_cfg: LossConfig, noun_w, verb_w, rpn_dra
               if loss_cfg.verb_on else zero)
     ttc_l = (L.ttc_loss(roi["ttcs"], ttcs_t, verbs, loss_cfg.ttc_beta, loss_cfg.ttc_bg,
                         loss_cfg.ttc_bg_val) if loss_cfg.ttc_on else zero)
-    if loss_cfg.lm_on:
-        raise NotImplementedError("the LM auxiliary loss is not ported yet")
-    stacked = torch.stack([bbox, obj_l + rpn_box_l, noun_l, verb_l, ttc_l, zero])
+    lm_l = (L.lm_loss(outputs["lm"], batch["targets"], loss_cfg.last_noun_idx)
+            if loss_cfg.lm_on else zero)
+    stacked = torch.stack([bbox, obj_l + rpn_box_l, noun_l, verb_l, ttc_l, lm_l])
     metrics = {"bbox_loss": bbox, "objectness_loss": obj_l, "loss_rpn_box_reg": rpn_box_l,
-               "noun_loss": noun_l, "verb_loss": verb_l, "ttc_loss": ttc_l, "lm_loss": zero}
+               "noun_loss": noun_l, "verb_loss": verb_l, "ttc_loss": ttc_l, "lm_loss": lm_l}
     return stacked, metrics
 
 

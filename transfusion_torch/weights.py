@@ -4,7 +4,9 @@ random from a seed.
 :func:`state_dict_from_jax` is the inverse of
 ``transfusion_tpu/tools/translate_checkpoint.py::translate_reference_checkpoint``:
 it takes a TransFusion param tree (numpy leaves, built with the plain 7x7
-stem) and returns the port's state dict under the reference torch names. It
+stem) of any fusion family and option and returns the port's state dict
+under the reference torch names (JAX's module names where the reference
+has none: see :mod:`transfusion_torch.models.transfusion`). It
 undoes the translator's four layout changes: HWIO -> OIHW convs, the fc6
 column order (y, x, c) -> (c, y, x), the back-projection fold order
 (ph, pw, C) -> (C, ph, pw) (rows and bias), and the split q/k/v projections
@@ -102,6 +104,35 @@ def _bert(bert: dict, out: dict):
             out[f"{base}.{dst}.bias"] = np.asarray(node[src]["bias"])
 
 
+def _norm(out: dict, name: str, node: dict):
+    out[f"{name}.weight"] = np.asarray(node["scale"])
+    out[f"{name}.bias"] = np.asarray(node["bias"])
+
+
+def _encoder_layer(base: str, lay: dict, out: dict):
+    """A fusion EncoderLayer: q/k/v packed into torch's in_proj."""
+    out[f"{base}.self_attn.in_proj_weight"] = np.concatenate(
+        [_lin(lay[p]["kernel"]) for p in ("q_proj", "k_proj", "v_proj")], 0)
+    out[f"{base}.self_attn.in_proj_bias"] = np.concatenate(
+        [np.asarray(lay[p]["bias"]) for p in ("q_proj", "k_proj", "v_proj")], 0)
+    for p in ("linear1", "linear2"):
+        _dense(out, f"{base}.{p}", lay[p])
+    _dense(out, f"{base}.self_attn.out_proj", lay["out_proj"])
+    for p in ("norm1", "norm2"):
+        _norm(out, f"{base}.{p}", lay[p])
+
+
+def _layers(prefix: str, node: dict):
+    """(index, subtree) of ``<prefix>_<i>`` children, in index order."""
+    found = [(int(m.group(1)), v) for k, v in node.items() if (m := re.fullmatch(rf"{prefix}_(\d+)", k))]
+    return sorted(found, key=lambda kv: kv[0])
+
+
+def _pos(base: str, node: dict, out: dict):
+    if "pos" in node:  # learned or zero positions
+        out[f"{base}.pos.pos_embedding"] = np.asarray(node["pos"]["pos_embedding"])
+
+
 def _fusion(i: int, level: dict, out: dict):
     ph, pw, c, d = np.asarray(level["patch_to_token"]["kernel"]).shape
     out[f"patches_to_token.{i}.weight"] = _conv(level["patch_to_token"]["kernel"])
@@ -111,31 +142,52 @@ def _fusion(i: int, level: dict, out: dict):
     out[f"tokens_to_features.{i}.linear.bias"] = (
         np.asarray(level["back_proj"]["bias"]).reshape(ph, pw, c).transpose(2, 0, 1).reshape(-1))
     enc = f"cross_fusion_encoders.{i}"
+    if "encoder" in level:  # space_time
+        st = level["encoder"]
+        out[f"{enc}.encoder.image_kind_embedding"] = np.asarray(st["image_kind"])
+        _pos(f"{enc}.encoder", st, out)
+        if "final_norm" in st:
+            _norm(out, f"{enc}.encoder.final_norm", st["final_norm"])
+        for j, lay in _layers("layer", st):
+            for part in ("spatial", "temporal"):
+                _encoder_layer(f"{enc}.encoder.layers.{j}.{part}", lay[part], out)
+        return
     out[f"{enc}.image_kind_embedding"] = np.asarray(level["image_kind"])
     out[f"{enc}.lang_kind_embedding"] = np.asarray(level["lang_kind"])
-    out[f"{enc}.final_norm_layer.weight"] = np.asarray(level["final_norm"]["scale"])
-    out[f"{enc}.final_norm_layer.bias"] = np.asarray(level["final_norm"]["bias"])
-    for name, lay in level.items():
-        m = re.fullmatch(r"layer_(\d+)", name)
-        if not m:
-            continue
-        base = f"{enc}.t_encoder.layers.{m.group(1)}"
-        out[f"{base}.self_attn.in_proj_weight"] = np.concatenate(
-            [_lin(lay[p]["kernel"]) for p in ("q_proj", "k_proj", "v_proj")], 0)
-        out[f"{base}.self_attn.in_proj_bias"] = np.concatenate(
-            [np.asarray(lay[p]["bias"]) for p in ("q_proj", "k_proj", "v_proj")], 0)
-        for p in ("linear1", "linear2"):
-            _dense(out, f"{base}.{p}", lay[p])
-        _dense(out, f"{base}.self_attn.out_proj", lay["out_proj"])
-        for p in ("norm1", "norm2"):
-            out[f"{base}.{p}.weight"] = np.asarray(lay[p]["scale"])
-            out[f"{base}.{p}.bias"] = np.asarray(lay[p]["bias"])
+    _pos(enc, level, out)
+    if "final_norm" in level:
+        _norm(out, f"{enc}.final_norm_layer", level["final_norm"])
+    for j, lay in _layers("layer", level):
+        _encoder_layer(f"{enc}.t_encoder.layers.{j}", lay, out)
+    for stream in ("vis", "lang"):  # asymmetric
+        for j, lay in _layers(stream, level):
+            base = f"{enc}.{stream}_layers.{j}"
+            for p in ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2"):
+                _dense(out, f"{base}.{p}", lay[p])
+            for p in ("norm1", "norm2"):
+                _norm(out, f"{base}.{p}", lay[p])
+
+
+def _vis_fusion(i: int, node: dict, out: dict):
+    out[f"vis_fusion.{i}.proj.weight"] = _lin(node["proj"]["kernel"])
+    _pos(f"vis_fusion.{i}", node, out)
+    for j, lay in _layers("layer", node):
+        _encoder_layer(f"vis_fusion.{i}.layers.{j}", lay, out)
+
+
+def _lm_head(name: str, node: dict, out: dict):
+    if "ln" in node:
+        _norm(out, f"{name}.ln", node["ln"])
+    for p in ("mlp_noun", "mlp_verb"):
+        if p in node:
+            _dense(out, f"{name}.{p}", node[p])
 
 
 def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
     """JAX TransFusion params (``variables["params"]`` or the variables
     themselves, numpy or jax leaves) -> the port's state dict (f32 tensors).
-    ``fpn_features`` orders the ``fusion_<lvl>`` subtrees (default: by lvl)."""
+    ``fpn_features`` orders the ``fusion_<lvl>`` and ``vis_fusion_<lvl>``
+    subtrees (default: by lvl)."""
     params = params.get("params", params)
     params = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
     out: dict = {}
@@ -149,7 +201,16 @@ def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
     order = list(fpn_features) if fpn_features is not None else levels
     for i, lvl in enumerate(order):
         _fusion(i, params[f"fusion_{lvl}"], out)
-    unknown = set(params) - {"rcnn", "narr_encoder"} - {f"fusion_{lvl}" for lvl in levels}
+        if f"vis_fusion_{lvl}" in params:
+            _vis_fusion(i, params[f"vis_fusion_{lvl}"], out)
+    for j, lay in _layers("shared_layer", params):
+        _encoder_layer(f"shared_t_encoder.layers.{j}", lay, out)
+    if "lm_layer" in params:
+        _lm_head("lm_layer", params["lm_layer"], out)
+    for j, node in _layers("lm_layer", params):
+        _lm_head(f"lm_layers.{j}", node, out)
+    known = re.compile(r"rcnn|narr_encoder|lm_layer(_\d+)?|shared_layer_\d+|(vis_)?fusion_\d+")
+    unknown = [k for k in params if not known.fullmatch(k)]
     if unknown:
         raise NotImplementedError(f"params not ported yet: {sorted(unknown)}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
@@ -208,20 +269,24 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Seeded random weights, made on the host with a ``torch.Generator``
     and copied to the model's device: fan-in scaled normal weights, zero
     biases, identity frozen BN and LayerNorms, unit-normal kind embeddings
-    (the JAX init), 0.02-normal BERT embeddings, 0.01-normal RoI predictors."""
+    and learned positions and zero ``zero`` positions (the JAX inits),
+    0.02-normal BERT embeddings, 0.01-normal RoI predictors."""
     gen = torch.Generator().manual_seed(seed)
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         if name.endswith(("running_mean", "table")):
             val = torch.zeros(t.shape) if name.endswith("running_mean") else None
         elif name.endswith("running_var"):
             val = torch.ones(t.shape)
+        elif name.endswith("pos.pos_embedding"):
+            learned = model.get_submodule(name.removesuffix(".pos_embedding")).kind == "learned"
+            val = torch.randn(t.shape, generator=gen) if learned else torch.zeros(t.shape)
         elif name.endswith("kind_embedding"):
             val = torch.randn(t.shape, generator=gen)
         elif "embeddings" in name and t.dim() == 2:
             val = torch.randn(t.shape, generator=gen) * 0.02
         elif t.dim() == 1:
             is_scale = name.endswith("weight") and ("norm" in name.lower() or ".bn" in name
-                                                    or "downsample.1" in name)
+                                                    or "downsample.1" in name or ".ln." in name)
             val = torch.ones(t.shape) if is_scale else torch.zeros(t.shape)
         else:
             fan_in = int(np.prod(t.shape[1:]))
