@@ -61,7 +61,21 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    steps after a warm-up each, finite losses, a non-zero LM loss, non-zero
    gradients on the LM heads and upstream of the new layers, and launches
    a forward and a step as EXPECTED_FUSION_OPTIONS predicts; eval s, step s
-   and peak memory beside the card's name and power limit.
+   and peak memory beside the card's name and power limit;
+8. the narration towers and the transformer TTC head: K1 and its backward
+   at the shapes they add (TOWER_LN_SHAPES: distilgpt2's norms, 512 x 768
+   at eps 1e-5; the head's residual norms, 2,240 x 1024) against the plain
+   versions, timed beside F.layer_norm; then three configurations at
+   flagship width and depth, each ``flagship_run_config()`` with one
+   change (TOWER_OPTIONS): distilgpt2 (6 x 768) and flan-t5-large (24 x
+   1024, gated GELU) towers on the hash-fallback tokenizers at 64 tokens,
+   and the TTC head (4 layers, 1024 wide, 5 detections an image) over a
+   seeded hand history; seeded weights, two eval requests (through
+   ``make_eval_step``, so the head's second pass runs) and two train
+   steps after a warm-up each; launches as EXPECTED_TOWERS predicts,
+   finite losses, a non-zero TTC loss whose gradient reaches the head and
+   nothing upstream of its detached inputs, non-zero gradients upstream of
+   K2-K4 and K6; eval s, step s, peak memory and the phase's wall time.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -295,43 +309,50 @@ def graph_ms(torch, fns, launches: int = 40, reps: int = 5) -> float:
     return ms
 
 
+def time_ln_shape(torch, shape: dict, g) -> dict:
+    """K1 at ``shape`` against its plain version (bf16 3.2e-2, f32 1e-4),
+    timed by CUDA-graph replay over inputs cycled past the L2, beside its
+    bound, the plain version and, for the plain variant, F.layer_norm."""
+    from transfusion_torch.ops import layer_norm as ln
+
+    name = "residual_layer_norm" if shape["residual"] else "layer_norm"
+    sets, w, b = ln_inputs(torch, shape, g, ln_copies(shape))
+    x, r = sets[0]
+    eps = shape.get("eps", 1e-6)
+    got = ln.fused_layer_norm(x, w, b, eps, residual=r)
+    want = ln.layer_norm_plain(x.contiguous(), w, b, eps, residual=r)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(f"{name} {shape['label']} [{B * shape['n']}, {shape['d']}] {shape['dtype']}", err,
+          3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
+    ms = graph_ms(torch, [lambda x=x, r=r: ln.fused_layer_norm(x, w, b, eps, residual=r) for x, r in sets])
+    plain = cuda_ms(lambda: ln.layer_norm_plain(x, w, b, eps, residual=r), 5)
+    lib = None
+    if not shape["residual"]:
+        wl, bl = w.to(x.dtype), b.to(x.dtype)
+        lib = graph_ms(torch, [lambda x=x: torch.nn.functional.layer_norm(x, (shape["d"],), wl, bl, eps)
+                               for x, _ in sets])
+    bms, by = bound_ms(ln_bytes(shape), B * shape["n"] * shape["d"] * (9 if shape["residual"] else 8),
+                       F32_FLOPS)
+    log(f"  {shape['label']}: kernel {ms:.4f} ms, {100.0 * bms / ms:.1f} % of its {bms:.4f} ms bound; "
+        f"plain {plain:.4f} ms" + ("" if lib is None else f"; F.layer_norm {lib:.4f} ms"))
+    return {**shape, "rows": B * shape["n"], "name": name, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
+            "pct_of_bound": 100.0 * bms / ms, "input_sets": len(sets)}
+
+
 def phase_layer_norm(torch):
     """K1 at every shape of LN_SHAPES against its plain version (bf16 one ulp
     for |y| < 8, 3.2e-2; f32 1e-4), timed on the card (CUDA-graph replays,
     inputs cycled past the L2) beside its bound, the plain version and, for
     the plain variant, F.layer_norm. The kernel rows of the JSON line are the
     level-0 shapes (the final norm through its view, as the model runs it)."""
-    from transfusion_torch.ops import layer_norm as ln
-
     g = torch.Generator(device="cuda").manual_seed(1)
     shapes, errs = [], {"layer_norm": 0.0, "residual_layer_norm": 0.0}
     for shape in LN_SHAPES:
-        name = "residual_layer_norm" if shape["residual"] else "layer_norm"
-        sets, w, b = ln_inputs(torch, shape, g, ln_copies(shape))
-        x, r = sets[0]
-        eps = shape.get("eps", 1e-6)
-        got = ln.fused_layer_norm(x, w, b, eps, residual=r)
-        want = ln.layer_norm_plain(x.contiguous(), w, b, eps, residual=r)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        errs[name] = max(errs[name], err)
-        check(f"{name} {shape['label']} [{B * shape['n']}, {shape['d']}] {shape['dtype']}", err,
-              3.2e-2 if shape["dtype"] == "bf16" else 1e-4)
-        ms = graph_ms(torch, [lambda x=x, r=r: ln.fused_layer_norm(x, w, b, eps, residual=r) for x, r in sets])
-        plain = cuda_ms(lambda: ln.layer_norm_plain(x, w, b, eps, residual=r), 5)
-        lib = None
-        if not shape["residual"]:
-            wl, bl = w.to(x.dtype), b.to(x.dtype)
-            lib = graph_ms(torch, [lambda x=x: torch.nn.functional.layer_norm(x, (shape["d"],), wl, bl, eps)
-                                   for x, _ in sets])
-        nbytes = ln_bytes(shape)
-        bms, by = bound_ms(nbytes, B * shape["n"] * shape["d"] * (9 if shape["residual"] else 8), F32_FLOPS)
-        shapes.append({**shape, "rows": B * shape["n"], "name": name, "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain, "library_ms": lib, "bound_ms": bms, "bound_by": by,
-                       "pct_of_bound": 100.0 * bms / ms, "input_sets": len(sets)})
-        log(f"  {shape['label']}: kernel {ms:.4f} ms, {100.0 * bms / ms:.1f} % of its {bms:.4f} ms bound; "
-            f"plain {plain:.4f} ms" + ("" if lib is None else f"; F.layer_norm {lib:.4f} ms"))
-        del sets, got, want
+        rec = time_ln_shape(torch, shape, g)
+        errs[rec["name"]] = max(errs[rec["name"]], rec["max_abs_err"])
+        shapes.append(rec)
     torch.cuda.empty_cache()
     rows = []
     for name, label in (("layer_norm", "fusion L0 final norm, view"), ("residual_layer_norm", "fusion L0 norm1/norm2")):
@@ -1559,6 +1580,230 @@ def phase_fusion_options(torch, np, smi: str):
     return records
 
 
+# Phase 8: the narration towers and the transformer TTC head, each
+# flagship_run_config() with one change ((section, key, ...) -> value).
+TOWER_OPTIONS = {
+    "gpt2": {("run", "narration_embeds", "args", "model_v"): "distilgpt2"},
+    "flan_t5_large": {("run", "narration_embeds", "args", "model_v"): "flan-t5-large"},
+    "ttc_hand": {("run", "criterion", "ttc"): 1,
+                 ("model", "ttc_hand_head"): {"use": True, "feat_dim": 1024, "num_layers": 4, "num_heads": 4,
+                                              "max_ttc_boxes_per_image": 5},
+                 ("run", "hand_args"): {"use": True, "num_steps": 5}},
+}
+# Predicted launches a forward and a step (PERF.md §4): distilgpt2's 13
+# LayerNorms (12 + ln_f, plain) beside the fusion's 4 + 32; flan-t5's
+# RMSNorms are not LayerNorms; the TTC head's 4 layers x 2 residual norms
+# over B x 5 detections x 56 tokens beside the flagship's 5 + 56.
+EXPECTED_TOWERS = {"gpt2": (17, 32, True), "flan_t5_large": (4, 32, True), "ttc_hand": (5, 64, True)}
+TTC_BOXES, TTC_TOKENS = 5, 56  # CLS, object feature, 4 object-box, 40 hand-box, 10 hand-pose tokens
+HAND_STEPS = 5
+# K1 at the shapes the phase adds: distilgpt2's norms (B x 64 rows x 768,
+# eps 1e-5), and the TTC head's residual norms (B x 5 x 56 = 2,240 rows x
+# 1024; 2,280, a 57-token sequence, too); bf16 as the path runs them, and
+# f32.
+TOWER_LN_SHAPES = tuple(
+    {**shape, "dtype": dt, "label": f"{shape['label']} {dt}"}
+    for shape in ({"label": "GPT-2 norms", "n": LANG_LEN, "d": 768, "residual": False, "eps": 1e-5},
+                  {"label": "TTC head norm1/norm2", "n": TTC_BOXES * TTC_TOKENS, "d": 1024, "residual": True},
+                  {"label": "residual 2,280 x 1024", "n": 285, "d": 1024, "residual": True})
+    for dt in ("bf16", "f32"))
+NARRATION_WORDS = ("take", "knife", "cut", "onion", "wash", "the", "pan", "put", "plate", "on", "table",
+                   "open", "drawer", "and", "then")
+
+
+def tower_run_config(name: str) -> dict:
+    cfg = flagship_run_config()
+    for path, value in TOWER_OPTIONS[name].items():
+        node = cfg
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = value
+    return cfg
+
+
+def tower_batch(torch, np, name: str, tokenizer) -> dict:
+    """The fusion-option phase's batch without clip features, its tokens
+    from ``tokenizer`` (LANG_LEN, padded) over seeded narrations, and for
+    the TTC head a hand history of HAND_STEPS steps (boxes [B, 10, 4],
+    poses [B, 10, 63]) from the seed."""
+    batch = {k: v for k, v in fusion_option_batch(torch, np).items() if k != "visual_features"}
+    rng = np.random.default_rng(2)
+    texts = [" ".join(rng.choice(NARRATION_WORDS, int(rng.integers(3, 12)))) for _ in range(B)]
+    ids, mask = tokenizer.encode_batch(texts, LANG_LEN)
+    batch["input_ids"] = torch.from_numpy(ids).long().cuda()
+    batch["attention_mask"] = torch.from_numpy(mask).long().cuda()
+    if name == "ttc_hand":
+        n = 2 * HAND_STEPS
+        batch["hand_boxes"] = torch.from_numpy(np.sort(rng.uniform(0, 1, (B, n, 4)), -1).astype(np.float32)).cuda()
+        batch["hand_poses"] = torch.from_numpy(rng.normal(0, 0.5, (B, n, 63)).astype(np.float32)).cuda()
+    return batch
+
+
+def tower_stages(torch, model, cfg, batch) -> dict:
+    """Host-clock ms (synchronised) of an eval request's forward, its
+    postprocess and the TTC head's pass, mean of 3 after a warm-up."""
+    from transfusion_torch.models.detector import detections_from_outputs
+
+    stages: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    model.eval()
+    with torch.no_grad():
+        for rep in range(4):
+            if rep == 1:
+                stages.clear()
+            out = timed("forward", lambda: model(batch))
+            dets = timed("postprocess", lambda: detections_from_outputs(out, cfg.detector))
+            if cfg.ttc_hand is not None:
+                timed("ttc head pass", lambda: model.predict_ttc(dets, out["roi_outputs"], batch, batch["image_hw"]))
+    stages = {k: v / 3 for k, v in stages.items()}
+    log(f"  stage ms (synchronised): {json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    return stages
+
+
+def phase_towers(torch, np, smi: str, profile: bool = False):
+    """Phase 8: K1 and its backward at TOWER_LN_SHAPES against the plain
+    versions (and timed at each), then the three configurations of
+    TOWER_OPTIONS at flagship width and depth through
+    build_transfusion_config with seeded weights and the hash-fallback
+    tokenizers: an eval request through make_eval_step (the TTC head's
+    second pass included) and the train step, each a warm-up and then
+    REQUESTS_FO / TRAIN_STEPS_FO timed; launches as EXPECTED_TOWERS, finite
+    losses, no skipped step, non-zero gradients upstream of K2-K4 and K6
+    and on the tower's out_mlp or the TTC head, a non-zero TTC loss, and a
+    step on the TTC loss alone that reaches the head and nothing else.
+    ``profile`` adds each configuration's stage times and a profiler trace
+    of a request and of a step."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
+    from transfusion_torch.runner.trainer import build_tokenizer, tower_depth, unfreeze_multipliers
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import (LossConfig, TrainState, criterion_weights, make_eval_step,
+                                              make_train_step)
+    from transfusion_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    check_ln_shapes(torch, g, TOWER_LN_SHAPES, "tower shapes")
+    ln_times = [time_ln_shape(torch, shape, g) for shape in TOWER_LN_SHAPES]
+    torch.cuda.empty_cache()
+    records = {"layer_norm_shapes": ln_times}
+    for name in TOWER_OPTIONS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        run_cfg = tower_run_config(name)
+        t0 = time.perf_counter()
+        cfg = build_transfusion_config(run_cfg, 88, 75, dtype=torch.bfloat16)
+        model = init_random_(TransFusion(cfg, device="cuda"), seed=0)
+        build_s = time.perf_counter() - t0
+        narr_args = run_cfg["run"]["narration_embeds"]["args"]
+        tokenizer = build_tokenizer(narr_args["model_v"], LANG_LEN)
+        batch = tower_batch(torch, np, name, tokenizer)
+        params = dict(model.named_parameters())
+        tower = sum(p.numel() for k, p in params.items()
+                    if k.startswith("narr_pooling_layer.encoder.")) / 1e6
+        torch.cuda.reset_peak_memory_stats()
+        eval_step = make_eval_step(model, cfg.detector)
+        eval_step(batch)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        eval_s = []
+        for _ in range(REQUESTS_FO):
+            t0 = time.perf_counter()
+            dets = eval_step(batch)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+        per_forward = {k: v / REQUESTS_FO for k, v in LAUNCHES.items()}
+        if not all(torch.isfinite(dets[k]).all() for k in ("boxes", "scores", "ttcs")):
+            raise AssertionError(f"[{name}] non-finite detections")
+        if cfg.ttc_hand is not None:
+            first = dets["valid"][:, :TTC_BOXES]
+            if not first.any() or not (dets["ttcs"][:, :TTC_BOXES][first] >= cfg.detector.roi.min_ttc).all():
+                raise AssertionError(f"[{name}] the TTC head's pass left no clamped TTC: {dets['ttcs'][:, :TTC_BOXES]}")
+
+        nn_, nv = cfg.detector.roi.num_nouns, cfg.detector.roi.num_verbs
+        tx, _ = make_optimizer({"name": "radam", "lr": 1e-4, "weight_decay": 1e-5}, None, 100)
+        state = TrainState(step=0, opt_state=tx.init(params))
+        mult = unfreeze_multipliers(model.named_parameters(), 0, run_cfg["model"], -1, 1, tower_depth(cfg),
+                                    text_encoder=cfg.text_encoder)
+        step = make_train_step(model, tx, LossConfig(ttc_on=cfg.detector.roi.ttc_on,
+                                                     rpn_batch_size_per_image=256, last_noun_idx=nn_ - 1),
+                               torch.ones(nn_), torch.ones(nv))
+        lw = criterion_weights(run_cfg["run"]["criterion"], 0)
+        step(state, batch, lw, mult)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        step_s, metrics = [], []
+        for _ in range(TRAIN_STEPS_FO):
+            t0 = time.perf_counter()
+            m = step(state, batch, lw, mult)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        per_step = {k: v / TRAIN_STEPS_FO for k, v in LAUNCHES.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for m in metrics:
+            if not all(math.isfinite(v) for v in m.values()) or m["nonfinite_skipped"] != 0.0:
+                raise AssertionError(f"[{name}] a train step went non-finite or was skipped: {m}")
+            if cfg.ttc_hand is not None and not m["ttc_loss"] > 0.0:
+                raise AssertionError(f"[{name}] ttc loss {m['ttc_loss']}")
+        watched = ["cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight",
+                   "backbone.fpn.layer_blocks.0.weight"]
+        watched += (["ttc_hand_head.layers.0.self_attn.in_proj_weight", "ttc_hand_head.ttc_out.weight"]
+                    if cfg.ttc_hand is not None else ["narr_pooling_layer.out_mlp.weight"])
+        grads = {n: float(params[n].grad.float().norm()) for n in watched}
+        if not all(v > 0.0 for v in grads.values()):
+            raise AssertionError(f"[{name}] zero gradient: {grads}")
+        only_head = None
+        if cfg.ttc_hand is not None:
+            # The TTC loss alone: its gradient reaches the head and no
+            # parameter upstream of the detached box features.
+            m = step(state, batch, np.array([0, 0, 0, 0, 1, 0], np.float32), mult)
+            leaked = [n for n, p in params.items() if not n.startswith("ttc_hand_head.")
+                      and p.grad is not None and bool(p.grad.any())]
+            head = [n for n, p in params.items() if n.startswith("ttc_hand_head.")
+                    and p.grad is not None and bool(p.grad.any())]
+            if leaked or not head or not float(m["ttc_loss"]) > 0.0:
+                raise AssertionError(f"[{name}] the TTC loss reached {leaked[:5]}, or no head parameter "
+                                     f"({len(head)})")
+            only_head = {"head_tensors_with_grad": len(head), "ttc_loss": float(m["ttc_loss"])}
+        want_fwd = _launches(*EXPECTED_TOWERS[name], step=False)
+        want_step = _launches(*EXPECTED_TOWERS[name], step=True)
+        got_fwd = {k: per_forward.get(k, 0) for k in want_fwd}
+        got_step = {k: per_step.get(k, 0) for k in want_step}
+        log(f"[towers: {name}] built in {build_s:.1f} s ({sum(p.numel() for p in params.values()) / 1e6:.1f} M "
+            f"params, tower {tower:.1f} M); launches a forward {got_fwd}, a step {got_step}")
+        log(f"  eval s {[round(t, 4) for t in eval_s]}, step s {[round(t, 4) for t in step_s]}, "
+            f"peak {peak:.2f} GiB ({held:.2f} GiB held before the build; {smi}); losses "
+            f"{[round(m['loss'], 4) for m in metrics]}, ttc {[round(m['ttc_loss'], 4) for m in metrics]}; "
+            f"|grad| {json.dumps(grads)}" + ("" if only_head is None else f"; TTC loss alone {only_head}"))
+        if got_fwd != want_fwd or got_step != want_step:
+            raise AssertionError(f"[{name}] launches differ from the prediction: forward {want_fwd}, "
+                                 f"step {want_step}")
+        records[name] = {"eval_s": eval_s, "step_s": step_s, "peak_gib": peak, "held_gib": held,
+                         "build_s": build_s, "tower_mparams": tower, "launches_forward": per_forward,
+                         "launches_step": per_step, "metrics": metrics, "grad_norms": grads,
+                         "ttc_loss_alone": only_head, "card": smi}
+        if profile:
+            records[name]["profile"] = {
+                "stage_ms": tower_stages(torch, model, cfg, batch),
+                "request": _trace(torch, f"{name} request", lambda: eval_step(batch)),
+                "step": _trace(torch, f"{name} train step", lambda: step(state, batch, lw, mult))}
+        del model, state, step, params, m, metrics, eval_step, dets, batch
+        torch.cuda.empty_cache()
+    records["wall_s"] = time.perf_counter() - t_phase
+    log(f"[towers] phase wall time {records['wall_s']:.1f} s")
+    return records
+
+
 def phase_profile(torch, model, cfg, batch, freqs):
     """Where a request's time goes: each stage of the forward timed on the
     host clock between synchronisations (so stages do not overlap), then one
@@ -1631,8 +1876,14 @@ def _trace(torch, what: str, fn):
         f"(idle share {1 - busy_ms / wall_ms:.3f})")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    # Host operators by their own CPU time (the launch and dispatch work).
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    log("  host, self CPU ms: " + ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} (x{e.count})"
+                                           for e in host))
     return {f"profiled_{what.replace(' ', '_')}_ms": wall_ms, "device_busy_ms": busy_ms,
-            "top_kernels_ms": {e.key: e.self_device_time_total / 1e3 for e in top}}
+            "top_kernels_ms": {e.key: e.self_device_time_total / 1e3 for e in top},
+            "top_host_ms": {e.key: e.self_cpu_time_total / 1e3 for e in host}}
 
 
 def main() -> int:
@@ -1687,6 +1938,8 @@ def main() -> int:
     trainer_rec = phase_trainer(torch, np)
     torch.cuda.empty_cache()
     fusion_rec = phase_fusion_options(torch, np, smi)
+    torch.cuda.empty_cache()
+    towers_rec = phase_towers(torch, np, smi, "--profile" in sys.argv[1:])
 
     rows, records = [], []
     for r in results:
@@ -1711,7 +1964,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
-                   "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec,
+                   "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -150,13 +150,9 @@ def _flagship_with(*changes):
 
 
 @pytest.mark.parametrize("option, path, value", [
-    ("narration_embeds.args.out_tanh", ("run", "narration_embeds", "args", "out_tanh"), True),
-    ("narration_embeds.args.type_embeddings",
-     ("run", "narration_embeds", "args", "type_embeddings"), ["obj"]),
-    ("narration_embeds.args.model_v", ("run", "narration_embeds", "args", "model_v"), "distilgpt2"),
-    ("model.batch_norm.use", ("model", "batch_norm", "use"), True),
-    ("run.narration_embeds.use", ("run", "narration_embeds", "use"), False),
-    ("model.type", ("model", "type"), "mobilenet"),
+    pytest.param("model.batch_norm.use", ("model", "batch_norm", "use"), True,
+                 id="model.batch_norm.use-path3-True"),
+    pytest.param("model.type", ("model", "type"), "mobilenet", id="model.type-path5-mobilenet"),
 ])
 def test_build_transfusion_config_refuses_unported_options(option, path, value):
     """An option outside the port raises NotImplementedError naming it."""
@@ -164,6 +160,32 @@ def test_build_transfusion_config_refuses_unported_options(option, path, value):
 
     with pytest.raises(NotImplementedError, match=option.replace(".", r"\.")):
         build_transfusion_config(_flagship_with((path, value)), 88, 75)
+
+
+@pytest.mark.parametrize("option, path, value", [
+    ("narration_embeds.args.out_tanh", ("run", "narration_embeds", "args", "out_tanh"), True),
+    ("narration_embeds.args.type_embeddings",
+     ("run", "narration_embeds", "args", "type_embeddings"), ["obj"]),
+    ("narration_embeds.args.model_v", ("run", "narration_embeds", "args", "model_v"), "distilgpt2"),
+    ("run.narration_embeds.use", ("run", "narration_embeds", "use"), False),
+])
+def test_build_transfusion_config_maps_the_language_options_as_jax(option, path, value):
+    """The language options the port once refused map as JAX's
+    build_transfusion_config maps them, field by field, at f32 and bf16."""
+    import jax.numpy as jnp
+
+    from transfusion_torch.models import transfusion as t_tf
+    from transfusion_tpu.models import transfusion as j_tf
+
+    cfg = _flagship_with((path, value))
+    for t_dt, j_dt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        got = t_tf.build_transfusion_config(cfg, 88, 75, dtype=t_dt)
+        _fields_match(got, j_tf.build_transfusion_config(cfg, 88, 75, dtype=j_dt))
+    field, want = {"narration_embeds.args.out_tanh": ("out_tanh", True),
+                   "narration_embeds.args.type_embeddings": ("type_embeddings", ("obj",)),
+                   "narration_embeds.args.model_v": ("text_encoder", "gpt2"),
+                   "run.narration_embeds.use": ("use_language", False)}[option]
+    assert getattr(got, field) == want
 
 
 NF = ("run", "narr_fusion")
@@ -211,12 +233,14 @@ def test_build_transfusion_config_accepts_the_fusion_options(case):
 
 @pytest.mark.parametrize("changes", [
     [(NF + ("type",), "heatmap")],
+    [(("run", "criterion", "ttc"), 1), (("model", "ttc_hand_head", "use"), True)],
     [(NF + ("type",), "asymmetric"), (NF + ("share_encoders",), True)],
     [(NF + ("type",), "space_time"), (("run", "narration_embeds", "slowfast_f_v"), True)],
 ])
 def test_build_transfusion_config_raises_what_jax_raises(changes):
-    """An unknown fusion type, and a shared stack or clip features on
-    another family than cross_transformer, raise JAX's ValueError."""
+    """An unknown fusion type, a shared stack or clip features on another
+    family than cross_transformer, and the transformer TTC head without the
+    hand history (run.hand_args.use) raise JAX's ValueError."""
     import jax.numpy as jnp
 
     from transfusion_torch.models import transfusion as t_tf

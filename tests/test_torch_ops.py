@@ -335,13 +335,15 @@ def _port_files():
     return files
 
 
-# The trainer slice's and the fusion options' modules, each of which the scan must reach.
+# The trainer slice's, the fusion options' and the towers' and TTC head's
+# modules, each of which the scan must reach.
 TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", "data/labels.py",
                    "data/annotations.py", "data/splits.py", "data/transforms.py",
                    "data/dataset.py", "data/loader.py", "models/transfusion.py", "models/fusion.py",
                    "models/fusion_variants.py", "train/losses.py", "weights.py", "train/step.py",
                    "train/optim.py", "metrics/sta_map.py", "runner/export.py",
-                   "train/checkpoint.py", "runner/trainer.py", "runner/run_experiment.py")
+                   "train/checkpoint.py", "runner/trainer.py", "runner/run_experiment.py",
+                   "models/lm_encoders.py", "models/ttc_head.py", "data/hand_pose.py", "data/glove.py")
 
 
 def test_port_imports_no_jax():
@@ -349,7 +351,8 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     for mod in TRAINER_MODULES:
         assert os.path.join(REPO, "transfusion_torch", mod) in files, mod
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "transfusion_tpu")
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "transfusion_tpu", "transformers",
+              "sentencepiece")
     for path in files:
         tree = ast.parse(open(path).read(), path)
         for node in ast.walk(tree):

@@ -103,6 +103,19 @@ class EgoNaoDataset:
     # clip-feature fusion; zero-filled where a uid is missing.
     visual_features_lookup: object = None
     visual_features_shape: tuple = (6, 2304)
+    # Optional FrankMocap hand history for the transformer TTC head
+    # (run.hand_args.use): a data.hand_pose.HandPoseLookup giving each
+    # sample's hand boxes [2 * steps, 4] and poses [2 * steps, 63].
+    hand_pose_lookup: object = None
+    # Optional precomputed narration vectors for the identity text tower:
+    # uid -> [D] (or [T, D]) as batch["language_f"], zero-filled where a uid
+    # is missing.
+    narration_embedding_lookup: object = None
+    narration_embedding_dim: int = 384
+    # The GloVe variant: callable(narration string) -> vector
+    # (data.glove.GloveNarrationEmbedder); it takes precedence over the uid
+    # lookup.
+    narration_embedder: object = None
 
     def __len__(self):
         return len(self.annots)
@@ -156,6 +169,18 @@ class EgoNaoDataset:
             if feats is None:
                 feats = np.zeros(self.visual_features_shape, np.float32)
             sample["visual_features"] = np.asarray(feats, np.float32)
+        if self.hand_pose_lookup is not None:
+            video = row[self.uid_col] if self.uid_col in row else row["video_id"]
+            sample["hand_boxes"], sample["hand_poses"] = self.hand_pose_lookup.get(
+                video, int(row["Frame_no"]))
+        if self.narration_embedder is not None:
+            sample["language_f"] = np.asarray(self.narration_embedder(sample["narration"]),
+                                              np.float32)
+        elif self.narration_embedding_lookup is not None:
+            vec = self.narration_embedding_lookup.get(uid)
+            if vec is None:
+                vec = np.zeros(self.narration_embedding_dim, np.float32)
+            sample["language_f"] = np.asarray(vec, np.float32)
         return sample
 
 
@@ -204,5 +229,10 @@ def collate(samples: list[dict], tokenizer=None, lang_max_length: int = 128) -> 
         batch["attention_mask"] = mask
     if "visual_features" in samples[0]:
         batch["visual_features"] = np.stack([s["visual_features"] for s in samples])
+    if "hand_boxes" in samples[0]:
+        batch["hand_boxes"] = np.stack([s["hand_boxes"] for s in samples])
+        batch["hand_poses"] = np.stack([s["hand_poses"] for s in samples])
+    if "language_f" in samples[0]:
+        batch["language_f"] = np.stack([s["language_f"] for s in samples])
     return batch
 

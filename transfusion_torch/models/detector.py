@@ -144,12 +144,14 @@ class FasterRCNN(nn.Module):
                                   targets, train, draws, generator, rng)
 
 
-def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None):
-    """Postprocess raw RoI outputs into per-image top-k detections (eval)."""
+def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None,
+                            training: bool = False):
+    """Postprocess raw RoI outputs into per-image top-k detections (eval, or
+    the training second pass of the transformer TTC head)."""
     roi = outputs["roi_outputs"]
     return postprocess_detections(roi, roi["proposals"], roi["proposals_valid"],
                                   outputs["image_sizes"], cfg.roi,
-                                  noun_verb_frequencies=noun_verb_frequencies)
+                                  noun_verb_frequencies=noun_verb_frequencies, training=training)
 
 
 def rescale_boxes(boxes, from_hw, to_hw):

@@ -3,7 +3,7 @@ detection postprocess (port of ``transfusion_tpu/models/roi_heads.py``).
 Names follow the reference:
 ``box_head.fc6``/``fc7`` (fc6 reads the pooled features flattened as
 (C, y, x)), ``noun_classifier``, ``verb_classifier``, ``box_regressor.1``,
-``ttc_pred_layer``."""
+``ttc_pred_layer`` (the linear TTC head; none with the transformer head)."""
 
 from __future__ import annotations
 
@@ -39,6 +39,9 @@ class RoIConfig:
     box_2_dropout: float = 0.0
     classif_dropout: float = 0.0
     ttc_on: bool = False
+    # The transformer TTC head (ttc_hand_head.use): the per-RoI ttc is the -1
+    # placeholder, and the detections' TTCs come from the head's second pass.
+    ttc_hand: bool = False
     additional_postprocessing: bool = False
     min_ttc: float = 0.251
     # Top-T candidates by score before NMS (exact while at most T clear the
@@ -75,7 +78,12 @@ def predictors(heads, box_features, cfg: RoIConfig, dtype, rng=None):
     h = dropout(box_features, cfg.classif_dropout, heads.training, rng)
     class_logits = linear(h, heads.noun_classifier, dtype)
     verb_logits = linear(h, heads.verb_classifier, dtype)
-    ttcs = F.softplus(linear(h, heads.ttc_pred_layer, dtype))[..., 0] if cfg.ttc_on else None
+    if cfg.ttc_on and cfg.ttc_hand:
+        ttcs = -torch.ones_like(class_logits[..., 0])
+    elif cfg.ttc_on:
+        ttcs = F.softplus(linear(h, heads.ttc_pred_layer, dtype))[..., 0]
+    else:
+        ttcs = None
     return {
         "class_logits": class_logits,
         "verb_logits": verb_logits,
@@ -96,7 +104,7 @@ class RoIHeads(nn.Module):
         self.box_regressor = nn.Sequential(nn.Identity(), nn.Linear(rep, 4 * cfg.num_nouns))
         self.noun_classifier = nn.Linear(rep, cfg.num_nouns)
         self.verb_classifier = nn.Linear(rep, cfg.num_verbs)
-        if cfg.ttc_on:
+        if cfg.ttc_on and not cfg.ttc_hand:
             self.ttc_pred_layer = nn.Linear(rep, 1)
 
     def forward(self, pooled, rng=None):
@@ -151,9 +159,11 @@ def select_training_samples(proposals, prop_valid, targets: dict, cfg: RoIConfig
 
 
 def postprocess_detections(outputs: dict, proposals, prop_valid, image_hw, cfg: RoIConfig,
-                           noun_verb_frequencies=None):
-    """Per-image top-k detections [B, K, ...] (K = detections_per_img), eval:
-    boxes, scores, nouns, verbs, ttcs, prop_idx, valid, pre_nms_missed."""
+                           noun_verb_frequencies=None, training: bool = False):
+    """Per-image top-k detections [B, K, ...] (K = detections_per_img):
+    boxes, scores, nouns, verbs, ttcs, prop_idx, valid, pre_nms_missed. The
+    MIN_TTC clamp of the additional postprocessing is an eval step, and with
+    the transformer TTC head it happens in the head's second pass instead."""
     f32 = lambda x: None if x is None else x.float()  # noqa: E731
     class_logits = f32(outputs["class_logits"])
     verb_logits = f32(outputs["verb_logits"])
@@ -226,7 +236,8 @@ def postprocess_detections(outputs: dict, proposals, prop_valid, image_hw, cfg: 
         lower = torch.tril(torch.ones((k, k), dtype=torch.bool, device=dev))[None]
         conflicts = intersect & same & both_valid & ~eye
         keep_valid = keep_valid & ((conflicts & lower).sum(-1) == 0)
-        det_ttcs = torch.clamp(det_ttcs, min=cfg.min_ttc)
+        if not training and not cfg.ttc_hand:
+            det_ttcs = torch.clamp(det_ttcs, min=cfg.min_ttc)
 
     zf = lambda x: torch.where(keep_valid if x.dim() == 2 else keep_valid[..., None],  # noqa: E731
                                x, torch.zeros_like(x))

@@ -1,5 +1,6 @@
 """BERT/MiniLM encoder and the narration pooling layer (port of
-``transfusion_tpu/models/text_encoder.py``, tokens and embedding modes). Training mode
+``transfusion_tpu/models/text_encoder.py``, tokens and embedding modes,
+``out_tanh`` and the inline type embeddings). Training mode
 turns on the JAX modules' dropout sites (embeddings, attention
 probabilities, attention and feed-forward outputs, after ``out_mlp``).
 
@@ -215,24 +216,42 @@ class _SentenceTransformer(nn.Module):
 
 class NarrationEncoder(nn.Module):
     """SBertLayer: BERT tokens (``out_mode`` "tokens") or their masked mean,
-    L2-normalised (norm clipped at 1e-12; "embedding") -> out_mlp ->
-    dropout. Returns (tokens [B, L, D] or the sentence vector [B, D],
-    attention_mask). Keys: ``encoder.0.auto_model.*`` and ``out_mlp``."""
+    L2-normalised (norm clipped at 1e-12; "embedding") -> out_mlp -> tanh
+    if ``out_tanh`` -> dropout. Returns (tokens [B, L, D] or the sentence
+    vector [B, D], attention_mask). ``type_embeddings`` names learned
+    per-type vectors (initialised normal(1 / type_embedding_init_div)),
+    which a [B, L, T] ``type_mask`` from the tokenizer's inline
+    ``word<type>`` markers adds to the marked tokens after the encoder.
+    Keys: ``encoder.0.auto_model.*``, ``type_embeddings.<name>`` and
+    ``out_mlp``."""
 
     def __init__(self, c: BertConfig, out_mlp: int | None = 896, dtype=torch.float32,
-                 out_dropout: float = 0.1, out_mode: str = "tokens"):
+                 out_dropout: float = 0.1, out_mode: str = "tokens", out_tanh: bool = False,
+                 type_embeddings: tuple = (), type_embedding_init_div: float = 1.0):
         super().__init__()
         self.dtype, self.out_dropout, self.out_mode = dtype, out_dropout, out_mode
+        self.out_tanh = out_tanh
+        self.type_names, self.type_embedding_init_div = tuple(type_embeddings), type_embedding_init_div
         self.encoder = nn.ModuleList([_SentenceTransformer(c, dtype)])
+        if self.type_names:
+            self.type_embeddings = nn.ParameterDict({
+                n: nn.Parameter(torch.randn(c.hidden_size) / type_embedding_init_div)
+                for n in self.type_names})
         self.out_mlp = (
             nn.Linear(c.hidden_size, out_mlp) if out_mlp and out_mlp != c.hidden_size else None
         )
 
-    def forward(self, input_ids, attention_mask, rng=None):
+    def forward(self, input_ids, attention_mask, rng=None, type_mask=None):
         out = self.encoder[0].auto_model(input_ids, attention_mask, rng)
+        if self.type_names and type_mask is not None:
+            table = torch.stack([self.type_embeddings[n] for n in self.type_names])  # [T, H]
+            out = out + torch.einsum("blt,th->blh", type_mask.to(device=out.device, dtype=out.dtype),
+                                     table.to(out.dtype))
         if self.out_mode == "embedding":
             out = mean_pool(out, attention_mask)
             out = out / torch.clamp(torch.linalg.vector_norm(out, dim=-1, keepdim=True), min=1e-12)
         if self.out_mlp is not None:
             out = linear(out, self.out_mlp, self.dtype)
+        if self.out_tanh:
+            out = torch.tanh(out)
         return dropout(out, self.out_dropout, self.training, rng), attention_mask

@@ -1,11 +1,13 @@
 """The TransFusion model: Faster R-CNN + narration encoder + per-level
-fusion + the LM auxiliary head (port of
+fusion + the LM auxiliary head + the transformer TTC head (port of
 ``transfusion_tpu/models/transfusion.py``: the ``cross_transformer``,
 ``asymmetric`` and ``space_time`` fusion families, the encoder stack shared
 across levels, clip-feature early fusion, every positional kind, language
-forwarding across levels, the sbert text encoder in tokens or embedding
-mode, and the LM head, for eval, validation with losses and training), and
-``build_transfusion_config`` from a derived run config.
+forwarding across levels, the sbert, GPT-2 and T5 towers in tokens or
+embedding mode, the identity path of precomputed language features, no
+language at all, the LM head, and the TTC head's second pass, for eval,
+validation with losses and training), and ``build_transfusion_config`` from
+a derived run config.
 
 ``TransFusion`` subclasses :class:`FasterRCNN` so its state dict has the
 reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
@@ -13,15 +15,19 @@ reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
 ``cross_fusion_encoders.i``, ``narr_pooling_layer.*``, ``lm_layer.*``), and,
 where JAX's tree has no reference name, names after JAX's modules
 (``shared_t_encoder.layers.j`` for ``shared_layer_j``, ``vis_fusion.i`` for
-``vis_fusion_<lvl>``, ``lm_layers.i`` for ``lm_layer_i``). ``forward`` takes
-the JAX batch contract: ``image [B, H, W, 3]``, ``input_ids``,
-``attention_mask``, ``image_hw``, ``visual_features [B, T, F]`` for the
-clip-feature fusion and, to train, ``targets``. As in JAX,
-``forward(batch, train=True)`` assigns targets and samples RoIs; dropout
-follows the module's ``.train()`` / ``.eval()`` mode and draws from the
-``rng`` (a ``text_encoder.DropoutRNG``) the train step passes.
-``eval_with_losses`` runs the trunk once and two RoI branches on it: every
-proposal for the detections, and sampled RoIs for the validation losses.
+``vis_fusion_<lvl>``, ``lm_layers.i`` for ``lm_layer_i``,
+``ttc_hand_head.*``). ``forward`` takes the JAX batch contract: ``image [B,
+H, W, 3]``, ``input_ids``, ``attention_mask``, ``image_hw``,
+``visual_features [B, T, F]`` for the clip-feature fusion, ``type_mask`` for
+the type embeddings, ``language_f`` (and ``language_mask``) for the identity
+path, ``hand_boxes`` / ``hand_poses`` for the TTC head and, to train,
+``targets``. As in JAX, ``forward(batch, train=True)`` assigns targets and
+samples RoIs, and with the TTC head runs its second pass on the sampled
+RoIs' detections; dropout follows the module's ``.train()`` / ``.eval()``
+mode and draws from the ``rng`` (a ``text_encoder.DropoutRNG``) the train
+step passes. ``eval_with_losses`` runs the trunk once and two RoI branches
+on it: every proposal for the detections, and sampled RoIs for the
+validation losses.
 """
 
 from __future__ import annotations
@@ -37,10 +43,14 @@ from transfusion_torch.models.fusion import (
     CrossFusionLevel, EncoderLayer, PoolPredictor, RegroupPatches, _TEncoder)
 from transfusion_torch.models.fusion_variants import (
     AsymmetricCrossFusionLevel, SpaceTimeFusionLevel, VisualFeatureFusion)
+from transfusion_torch.models.detector import detections_from_outputs
+from transfusion_torch.models.lm_encoders import (
+    GPT2Config, GPT2Encoder, PooledLMEncoder, T5Config, T5Encoder, t5_config)
 from transfusion_torch.models.resnet import RESNET50_CHANNELS
 from transfusion_torch.models.roi_heads import RoIConfig
 from transfusion_torch.models.rpn import RPNConfig
 from transfusion_torch.models.text_encoder import BertConfig, NarrationEncoder
+from transfusion_torch.models.ttc_head import TTCHeadConfig, TTCPredictionHead
 from transfusion_torch.ops.attention import BF16_HEAD_DIMS
 
 FUSION_TYPES = ("cross_transformer", "space_time", "asymmetric")
@@ -81,11 +91,17 @@ class TransFusionConfig:
     detector: DetectorConfig = field(default_factory=DetectorConfig)
     fusion: FusionConfig = field(default_factory=FusionConfig)
     bert: BertConfig = field(default_factory=BertConfig.minilm_l12)
+    # The language tower: "sbert" (BERT/MiniLM), "gpt2" (distilgpt2),
+    # "t5" (a T5 encoder stack), or "identity" (precomputed language
+    # features from the batch's language_f, no tower).
     text_encoder: str = "sbert"
     # "tokens" feeds per-token features to the fusion; "embedding" one pooled
     # sentence vector as a single fully attended language token.
     narr_out_mode: str = "tokens"
+    gpt2: GPT2Config | None = None  # text_encoder "gpt2"
+    t5: T5Config | None = None      # text_encoder "t5"
     out_mlp: int | None = 896
+    out_tanh: bool = False
     out_dropout: float = 0.1
     lm_on: bool = False
     lm_pooling: str = "mean"
@@ -95,6 +111,11 @@ class TransFusionConfig:
     lm_multi: object = False
     # Classify the language features the last level was given instead.
     lm_use_f: bool = False
+    # Inline narration type embeddings (the sbert tower only).
+    type_embeddings: tuple = ()
+    type_embedding_init_div: float = 1.0
+    # False: no tower, no fusion, no LM head; the detector alone.
+    use_language: bool = True
     # Clip-feature early fusion: batch["visual_features"] [B, T, F] fuses
     # with each level's patch tokens before the language stage.
     use_visual_features: bool = False
@@ -102,6 +123,10 @@ class TransFusionConfig:
     # The clip flag that is on: it fixes F, which JAX's layer reads from the
     # batch and the port's needs at build (visual_feature_dim).
     clip_features: str = "slowfast_f_v"
+    # The transformer TTC head over the postprocessed detections
+    # (ttc_hand_head.use): its config, and the detections an image it scores.
+    ttc_hand: TTCHeadConfig | None = None
+    max_ttc_boxes: int = 5
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -147,11 +172,12 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
                              dtype=torch.float32) -> TransFusionConfig:
     """Map a derived reference-format config dict (see ``config.derive``)
     onto TransFusionConfig, as ``transfusion_tpu/models/transfusion.py:468``
-    does, with its ValueErrors. The port builds a ResNet-50 family trunk with
-    frozen BN and the plain stem, every fusion family and option, the
-    sbert/MiniLM text tower in tokens or embedding mode, the LM head and the
-    linear TTC head. Every other option raises NotImplementedError naming
-    it. Flash attention is on unless the fusion args turn it off, as in JAX."""
+    does, with its ValueErrors: every fusion family and option, the LM head,
+    the sbert / GPT-2 / T5 / identity language towers (or none), and the
+    linear or transformer TTC head. The port builds a ResNet-50 family trunk
+    with frozen BN and the plain stem; another backbone, live BN or the s2d
+    stem raises NotImplementedError naming the option. Flash attention is on
+    unless the fusion args turn it off, as in JAX."""
     run, model = config["run"], config["model"]
     rcnn_kwargs = model.get("rcnn_kwargs", {})
     narr = run["narration_embeds"]
@@ -160,25 +186,48 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     fargs = fusion_cfg.get("args", {})
     criterion = run["criterion"]
     bn = model.get("batch_norm") or {}
-    text_pooling = narr_args.get("text_pooling", "sbert_finetune")
-    model_v = narr_args.get("model_v", "all-MiniLM-L12-v2")
     unported = [
         ("model.type", model.get("type", "res50"), "res50"),
         ("model.batch_norm.use", bool(bn.get("use", False)), False),
         ("model.s2d_stem", bool(model.get("s2d_stem", False)), False),
-        ("model.ttc_hand_head.use",
-         bool(criterion.get("ttc", 0) and (model.get("ttc_hand_head") or {}).get("use")), False),
-        ("run.narration_embeds.use", bool(narr.get("use", True)), True),
-        ("narration_embeds.args.pooling", narr_args.get("pooling") == "sbert", False),
-        ("narration_embeds.args.text_pooling", text_pooling, "sbert_finetune"),
-        ("narration_embeds.args.model_v",
-         model_v.startswith(("t5-", "flan-t5-")) or model_v == "distilgpt2", False),
-        ("narration_embeds.args.out_tanh", bool(narr_args.get("out_tanh", False)), False),
-        ("narration_embeds.args.type_embeddings", tuple(narr_args.get("type_embeddings") or ()), ()),
     ]
     for option, value, supported in unported:
         if value != supported:
             raise NotImplementedError(f"{option}={value!r} is not ported yet")
+    # The transformer TTC head and its hand history (model.ttc_hand_head,
+    # run.hand_args).
+    ttc_hand, max_ttc_boxes = None, 5
+    tth = model.get("ttc_hand_head") or {}
+    if criterion.get("ttc", 0) and tth.get("use"):
+        hand_args = run.get("hand_args") or {}
+        if not hand_args.get("use"):
+            raise ValueError("model.ttc_hand_head.use requires run.hand_args.use")
+        ttc_hand = TTCHeadConfig(
+            feat_dim=tth.get("feat_dim", 1024), ff_dim=tth.get("ff_dim", 1024),
+            num_heads=tth.get("num_heads", 4), num_layers=tth.get("num_layers", 4),
+            dropout=tth.get("dropout", 0.1), num_steps=hand_args.get("num_steps", 5),
+            emb_steps_hand=tth.get("emb_steps_hand", 100),
+            emb_steps_object=tth.get("emb_steps_object", 100),
+            hand_feat_dim=hand_args.get("hand_feat_dim", 63),
+            object_feat_dim=model["representation_size"])
+        max_ttc_boxes = tth.get("max_ttc_boxes_per_image", 5)
+    # The language tower: a non-learnable text pooling reads precomputed
+    # features from the batch (identity); distilgpt2, t5-* / flan-t5-* and
+    # the sbert variants build their towers.
+    model_v = narr_args.get("model_v", "all-MiniLM-L12-v2")
+    text_pooling = narr_args.get("text_pooling", "sbert_finetune")
+    text_encoder, gpt2, t5 = "sbert", None, None
+    bert = BertConfig.minilm_l12()
+    if narr_args.get("pooling") == "sbert" or text_pooling not in ("sbert_finetune", "gpt2", "t5-wikihow"):
+        text_encoder = "identity"
+    elif model_v == "distilgpt2":
+        text_encoder, gpt2 = "gpt2", GPT2Config()
+    elif model_v.startswith(("t5-", "flan-t5-")):
+        text_encoder, t5 = "t5", t5_config(model_v)
+    elif model_v == "minilm-tiny":
+        bert = BertConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
+    elif "L6" in model_v:
+        bert = BertConfig(num_layers=6)
     fusion_type = fusion_cfg.get("type", "cross_transformer")
     if fusion_type not in FUSION_TYPES:
         raise ValueError(f"cross_type={fusion_type!r} not implemented")
@@ -193,11 +242,6 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         if clip:
             raise ValueError("clip-feature fusion subclasses the cross_transformer wrapper "
                              "only (cross_f_box_vis_language_wrapper.py)")
-    bert = BertConfig.minilm_l12()
-    if model_v == "minilm-tiny":
-        bert = BertConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
-    elif "L6" in model_v:
-        bert = BertConfig(num_layers=6)
     roi = RoIConfig(
         num_nouns=num_nouns,
         num_verbs=num_verbs,
@@ -208,6 +252,7 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         box_2_dropout=model.get("box_2_dropout", 0.0),
         classif_dropout=run.get("class_dropout", 0.0),
         ttc_on=bool(criterion.get("ttc", 0)),
+        ttc_hand=ttc_hand is not None,
         additional_postprocessing=model.get("additional_postprocessing", False),
     )
     det = DetectorConfig(
@@ -243,17 +288,23 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     )
     lm_args = fusion_cfg.get("lm_args") or {}
     pooling = lm_args.get("pooling", {})
-    return TransFusionConfig(detector=det, fusion=fus, bert=bert,
+    return TransFusionConfig(detector=det, fusion=fus, bert=bert, text_encoder=text_encoder,
                              narr_out_mode=fusion_cfg.get("narr_out_mode", "tokens"),
+                             gpt2=gpt2, t5=t5,
                              out_mlp=narr_args.get("out_mlp"),
+                             out_tanh=bool(narr_args.get("out_tanh", False)),
                              out_dropout=narr_args.get("out_dropout", 0.1),
                              lm_on=bool(criterion.get("lm", 0)),
                              lm_pooling=pooling.get("type", "mean"),
                              lm_use_ln=bool(pooling.get("ln", True)),
                              lm_multi=lm_args.get("multi", False),
                              lm_use_f=bool(lm_args.get("use_lm_f", False)),
+                             type_embeddings=tuple(narr_args.get("type_embeddings") or ()),
+                             type_embedding_init_div=narr_args.get("type_embedding_init_div", 1.0),
+                             use_language=bool(narr.get("use", True)),
                              use_visual_features=bool(clip),
                              clip_features=clip[0] if clip else TransFusionConfig.clip_features,
+                             ttc_hand=ttc_hand, max_ttc_boxes=max_ttc_boxes,
                              dtype=dtype)
 
 
@@ -282,13 +333,31 @@ class TransFusion(FasterRCNN):
         f, dt = cfg.fusion, cfg.dtype
         if f.fusion_type not in FUSION_TYPES:
             raise ValueError(f"cross_type={f.fusion_type!r} not implemented")
-        if cfg.text_encoder != "sbert":
-            raise NotImplementedError("only the sbert text encoder is ported")
-        check_attention_head_dim(cfg, dev)
+        if cfg.text_encoder not in ("sbert", "gpt2", "t5", "identity"):
+            raise ValueError(f"text_encoder={cfg.text_encoder!r}: one of sbert, gpt2, t5, identity")
+        if cfg.use_language:
+            check_attention_head_dim(cfg, dev)
         super().__init__(cfg.detector, device=dev)
         self.tcfg = cfg
-        self.narr_pooling_layer = NarrationEncoder(cfg.bert, cfg.out_mlp, dt, cfg.out_dropout,
-                                                   cfg.narr_out_mode)
+        if cfg.use_language:
+            self._build_language(cfg)
+        if cfg.ttc_hand is not None:
+            self.ttc_hand_head = TTCPredictionHead(cfg.ttc_hand, dt)
+        self.to(dev).eval()
+
+    def _build_language(self, cfg: TransFusionConfig):
+        """The narration tower (none for the identity path), the fusion
+        levels and the LM head."""
+        f, dt = cfg.fusion, cfg.dtype
+        if cfg.text_encoder in ("gpt2", "t5"):
+            tower = (GPT2Encoder(cfg.gpt2, dt) if cfg.text_encoder == "gpt2"
+                     else T5Encoder(cfg.t5, dt))
+            self.narr_pooling_layer = PooledLMEncoder(tower, cfg.narr_out_mode, cfg.out_mlp,
+                                                      cfg.out_tanh, cfg.out_dropout, dt)
+        elif cfg.text_encoder == "sbert":
+            self.narr_pooling_layer = NarrationEncoder(
+                cfg.bert, cfg.out_mlp, dt, cfg.out_dropout, cfg.narr_out_mode, cfg.out_tanh,
+                cfg.type_embeddings, cfg.type_embedding_init_div)
         cross = f.fusion_type == "cross_transformer"
         d = f.token_dim
         if cross and f.share_encoders:
@@ -337,7 +406,31 @@ class TransFusion(FasterRCNN):
                 self.lm_layers = nn.ModuleList([head() for _ in f.fpn_features])
             else:
                 self.lm_layer = head()
-        self.to(dev).eval()
+
+    def _language(self, batch: dict, rng=None):
+        """The language tokens [B, L, D] and their mask [B, L]: the tower's,
+        or the identity path's batch["language_f"] (with
+        batch["language_mask"], else all ones; a 2-D [B, D] is one token)."""
+        c, dev = self.tcfg, self.device
+        if c.text_encoder == "identity":
+            lang = batch["language_f"].to(device=dev, dtype=c.dtype)
+            mask = batch.get("language_mask")
+            if mask is None:
+                mask = torch.ones(lang.shape[:2] if lang.dim() == 3 else (lang.shape[0], 1),
+                                  dtype=torch.int64, device=dev)
+            mask = mask.to(dev)
+        else:
+            extra = {}
+            if c.text_encoder == "sbert" and c.type_embeddings and "type_mask" in batch:
+                extra["type_mask"] = batch["type_mask"]
+            lang, mask = self.narr_pooling_layer(batch["input_ids"].to(dev),
+                                                 batch["attention_mask"].to(dev), rng, **extra)
+        if lang.dim() == 2:
+            # A sentence vector (embedding mode, or a 2-D language_f) is one
+            # fully attended token.
+            lang = lang[:, None]
+            mask = torch.ones((lang.shape[0], 1), dtype=mask.dtype, device=dev)
+        return lang, mask
 
     def _trunk(self, batch: dict, rng=None):
         """Backbone -> per-level language fusion -> FPN. Each level sees the
@@ -348,13 +441,10 @@ class TransFusion(FasterRCNN):
         context of the LM head)."""
         c, f = self.tcfg, self.tcfg.fusion
         feats = self.forward_features(batch["image"])
+        if not c.use_language:
+            return self.apply_fpn(feats), None
         dev = self.device
-        lang, lang_mask = self.narr_pooling_layer(batch["input_ids"].to(dev),
-                                                  batch["attention_mask"].to(dev), rng)
-        if lang.dim() == 2:
-            # Embedding mode: the sentence vector is one fully attended token.
-            lang = lang[:, None]
-            lang_mask = torch.ones((lang.shape[0], 1), dtype=lang_mask.dtype, device=dev)
+        lang, lang_mask = self._language(batch, rng)
         vis_f = batch.get("visual_features") if c.use_visual_features else None
         if vis_f is not None:
             vis_f = vis_f.to(dev)
@@ -400,12 +490,54 @@ class TransFusion(FasterRCNN):
         """Returns {"roi_outputs", "proposals", "image_sizes"[, "lm"]} (see
         ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws``, ``generator``
         and ``rng``)."""
+        c = self.tcfg
         fpn_feats, ctx = self._trunk(batch, rng)
         out = self.apply_rpn_roi(fpn_feats, batch["image_hw"], batch.get("targets"), train, draws,
                                  generator, rng)
-        if self.tcfg.lm_on:
+        if c.use_language and c.lm_on:
             out["lm"] = self._lm_outputs(ctx)
+        if c.ttc_hand is not None and train and "hand_boxes" in batch:
+            # The training second pass: the detections of the sampled RoIs
+            # (no gradient through the postprocess), the head on their
+            # detached box features and the hand history; the TTC criterion
+            # trains the head alone.
+            with torch.no_grad():
+                dets = detections_from_outputs(out, c.detector, training=True)
+            roi = dict(out["roi_outputs"], box_features=out["roi_outputs"]["box_features"].detach())
+            second = self.predict_ttc(dets, roi, batch, batch["image_hw"], training=True, rng=rng)
+            k = min(c.max_ttc_boxes, second["ttcs"].shape[1])
+            out["ttc_hand"] = {"ttcs": second["ttcs"][:, :k], "valid": second["valid"][:, :k]}
         return out
+
+    def predict_ttc(self, dets: dict, roi_outputs: dict, batch: dict, image_hw,
+                    training: bool = False, rng=None) -> dict:
+        """The transformer TTC head's pass over the first ``max_ttc_boxes``
+        detections an image: their RoI box features, their boxes normalised
+        by the image size, the batch's hand boxes and poses. The head's
+        softplus is followed by the reference's second one, and in eval
+        under the additional postprocessing by the MIN_TTC clamp. Returns
+        ``dets`` with those detections' TTCs replaced where they are valid."""
+        c = self.tcfg
+        dev = self.device
+        k = min(c.max_ttc_boxes, dets["boxes"].shape[1])
+        bf = roi_outputs["box_features"]                                     # [B, R, repr]
+        bsz = bf.shape[0]
+        idx = dets["prop_idx"][:, :k].long()
+        feats = torch.gather(bf, 1, idx[..., None].expand(-1, -1, bf.shape[-1]))
+        h, w = image_hw
+        wh = torch.tensor([w, h, w, h], dtype=torch.float32, device=dev)
+        obj = dets["boxes"][:, :k].float() / wh
+        inputs = {"box_features": feats.reshape(bsz * k, -1),
+                  "object_boxes": obj.reshape(bsz * k, 1, 4),
+                  "hand_boxes": batch["hand_boxes"].to(dev).repeat_interleave(k, 0),
+                  "hand_poses": batch["hand_poses"].to(dev).repeat_interleave(k, 0)}
+        ttc = torch.nn.functional.softplus(self.ttc_hand_head(inputs, rng if training else None))
+        if not training and c.detector.roi.additional_postprocessing:
+            ttc = torch.clamp(ttc, min=c.detector.roi.min_ttc)
+        ttc = ttc.reshape(bsz, k)
+        old = dets["ttcs"]
+        head = torch.where(dets["valid"][:, :k], ttc.to(old.dtype), old[:, :k])
+        return dict(dets, ttcs=torch.cat([head, old[:, k:]], 1))
 
     def eval_with_losses(self, batch: dict, draws=None, generator=None):
         """One eval forward giving {"eval": every proposal's RoI outputs, for
@@ -419,7 +551,7 @@ class TransFusion(FasterRCNN):
         rpn_out = self.propose(fpn_feats, hw)
         out = {"eval": self.apply_roi(fpn_feats, rpn_out, hw),
                "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator)}
-        if self.tcfg.lm_on:
+        if self.tcfg.use_language and self.tcfg.lm_on:
             lm = self._lm_outputs(ctx)
             out["eval"]["lm"] = out["loss"]["lm"] = lm
         return out

@@ -10,7 +10,8 @@ parameter paths map onto the port's reference names: ``backbone`` (the
 ResNet body; JAX keeps the FPN outside it) is ``backbone.body.*``, its stem
 ``backbone.body.conv1``, stage ``layerN`` ``backbone.body.layerN.*``;
 ``narr_encoder`` is ``narr_pooling_layer.*`` with BERT layer ``layer_i`` at
-``...encoder.layer.i.``; the RoI heads (``box_head``/``predictors``) are
+``...encoder.layer.i.``, GPT-2 block ``h_i`` at ``...transformer.h.i.`` and
+T5 block ``block_i`` at ``...encoder.block.i.``; the RoI heads (``box_head``/``predictors``) are
 ``roi_heads.*``. JAX holds the frozen BatchNorm vectors as parameters, the
 port as buffers: with these multipliers a frozen backbone moves in neither.
 
@@ -33,7 +34,9 @@ import numpy as np
 import torch
 
 from transfusion_torch.data.loader import DataLoader
-from transfusion_torch.data.tokenizer import WordPieceTokenizer, hash_vocab_tokenizer
+from transfusion_torch.data.tokenizer import (GPT2BPETokenizer, SentencePieceTokenizer,
+                                              WordPieceTokenizer, hash_gpt2_tokenizer,
+                                              hash_t5_tokenizer, hash_vocab_tokenizer)
 from transfusion_torch.data.transforms import AugConfig
 from transfusion_torch.device import resolve_device
 from transfusion_torch.metrics import STAMeanAveragePrecision
@@ -52,11 +55,29 @@ log = logging.getLogger("transfusion_torch")
 
 
 def build_tokenizer(model_v: str, max_length: int = 128):
-    """Host-side tokenizer of the sbert language towers: WordPiece over the
-    ``TOKENIZER_VOCAB`` vocab.txt, or a deterministic hash vocab without one
+    """Host-side tokenizer of the language tower the config selects, from
+    vocab files named by environment variables:
+      * sbert variants: TOKENIZER_VOCAB -> WordPiece vocab.txt;
+      * distilgpt2:     GPT2_VOCAB_JSON + GPT2_MERGES (or TOKENIZER_DIR's
+                        vocab.json and merges.txt) -> byte-level BPE;
+      * t5-*/flan-t5-*: T5_SPM (or TOKENIZER_DIR/spiece.model) ->
+                        SentencePiece unigram.
+    Without the files each falls back to a deterministic hash tokenizer
     (not checkpoint-compatible; a warning is logged)."""
-    if model_v == "distilgpt2" or model_v.startswith(("t5-", "flan-t5-")):
-        raise NotImplementedError(f"the {model_v!r} tokenizer is not ported yet")
+    tok_dir = os.environ.get("TOKENIZER_DIR", "")
+    if model_v == "distilgpt2":
+        vj = os.environ.get("GPT2_VOCAB_JSON", os.path.join(tok_dir, "vocab.json"))
+        mg = os.environ.get("GPT2_MERGES", os.path.join(tok_dir, "merges.txt"))
+        if os.path.isfile(vj) and os.path.isfile(mg):
+            return GPT2BPETokenizer.from_files(vj, mg, max_length=max_length)
+        log.warning("no GPT-2 vocab/merges files; using hash-fallback BPE tokenizer")
+        return hash_gpt2_tokenizer(max_length=max_length)
+    if model_v.startswith(("t5-", "flan-t5-")):
+        spm = os.environ.get("T5_SPM", os.path.join(tok_dir, "spiece.model"))
+        if os.path.isfile(spm):
+            return SentencePieceTokenizer.from_model_file(spm, max_length=max_length)
+        log.warning("no T5 spiece.model; using hash-fallback unigram tokenizer")
+        return hash_t5_tokenizer(max_length=max_length)
     vocab_path = os.environ.get("TOKENIZER_VOCAB", "")
     if vocab_path and os.path.isfile(vocab_path):
         return WordPieceTokenizer.from_vocab_file(vocab_path, max_length=max_length)
@@ -92,12 +113,12 @@ def unfreeze_multipliers(named_params, epoch: int, model_cfg: dict, narr_train_e
     """{parameter name: 0.0 or 1.0} for the epoch: the backbone body is
     frozen until ``train_ep`` and then only its ``trainable_layers`` deepest
     units train; the narration encoder trains its ``out_mlp`` and, from its
-    ``train_ep``, its last ``finetune_layers`` BERT layers;
-    ``freeze_backbone_at`` leaves only the RoI heads training."""
+    ``train_ep``, its unfreeze set: the last ``finetune_layers`` BERT layers
+    (sbert), the last block's MLP (GPT-2) or the last block (T5), with
+    ``num_bert_layers`` the tower's depth; ``freeze_backbone_at`` leaves only
+    the RoI heads training."""
     if str(model_cfg.get("type", "res50")).startswith("mobilenet"):
         raise NotImplementedError("the MobileNet backbone is not ported yet")
-    if text_encoder != "sbert":
-        raise NotImplementedError(f"text encoder {text_encoder!r} is not ported yet")
     train_ep = model_cfg.get("train_ep", -1)
     trainable_layers = model_cfg.get("trainable_layers", 0)
     backbone_on = train_ep != -1 and epoch >= train_ep
@@ -106,7 +127,13 @@ def unfreeze_multipliers(named_params, epoch: int, model_cfg: dict, narr_train_e
     if trainable_layers == 5:
         unfrozen_units |= {"conv1", "bn1"}  # the stem
     narr_on = narr_train_ep != -1 and epoch >= narr_train_ep
-    unfrozen_bert = {num_bert_layers - 1 - i for i in range(narr_finetune_layers)}
+    if text_encoder == "gpt2":
+        tower = re.compile(rf"\.transformer\.h\.{num_bert_layers - 1}\.mlp\.")
+    elif text_encoder == "t5":
+        tower = re.compile(rf"\.encoder\.block\.{num_bert_layers - 1}\.")
+    else:
+        last = "|".join(str(num_bert_layers - 1 - i) for i in range(narr_finetune_layers))
+        tower = re.compile(rf"\.encoder\.layer\.({last})\.") if last else None
     roi_only = freeze_backbone_at != -1 and epoch >= freeze_backbone_at
 
     def assign(name: str) -> float:
@@ -117,11 +144,16 @@ def unfreeze_multipliers(named_params, epoch: int, model_cfg: dict, narr_train_e
         if name.startswith("narr_pooling_layer."):
             if ".out_mlp." in name:
                 return 1.0
-            m = re.search(r"\.encoder\.layer\.(\d+)\.", name)
-            return 1.0 if narr_on and m and int(m.group(1)) in unfrozen_bert else 0.0
+            return 1.0 if narr_on and tower is not None and tower.search(name) else 0.0
         return 1.0
 
     return {name: assign(name) for name, _ in named_params}
+
+
+def tower_depth(cfg) -> int:
+    """The language tower's number of layers (the unfreeze rules' depth)."""
+    tower = {"gpt2": cfg.gpt2, "t5": cfg.t5}.get(cfg.text_encoder, cfg.bert)
+    return tower.num_layers
 
 
 @dataclass
@@ -146,9 +178,10 @@ class TrainerData:
 
 def build_trainer_data(config: dict, debug: bool = False) -> TrainerData:
     """The trainer's data from the dataset files (``EgoNaoTrainer._build_data``
-    of the JAX package, ``transfusion_tpu/runner/trainer.py:261-396``, for
-    the sbert narration path): annotations, label mappings, split, class
-    weights, frequencies, narrations, datasets and tokenizer."""
+    of the JAX package, ``transfusion_tpu/runner/trainer.py:261-396``):
+    annotations, label mappings, split, class weights, frequencies,
+    narrations, the hand history and precomputed narration vectors where the
+    config asks for them, datasets and tokenizer."""
     from transfusion_torch.data.annotations import load_sta_annotations
     from transfusion_torch.data.dataset import EgoNaoDataset, build_narration_lookup
     from transfusion_torch.data.labels import (balanced_class_weights, frequencies_to_array,
@@ -158,10 +191,6 @@ def build_trainer_data(config: dict, debug: bool = False) -> TrainerData:
     run = config["run"]
     ds_args = config["dataset"]["args"]
     narr_args = run["narration_embeds"]["args"]
-    if (run.get("hand_args") or {}).get("use"):
-        raise NotImplementedError("run.hand_args.use=True is not ported yet")
-    if narr_args.get("type") == "glove":
-        raise NotImplementedError("narration_embeds.args.type='glove' is not ported yet")
     root = dataset_root(config)
     annots = load_sta_annotations(
         root,
@@ -206,12 +235,17 @@ def build_trainer_data(config: dict, debug: bool = False) -> TrainerData:
         empty_prompt=narr_args.get("empty_prompt"), final_concat=narr_args.get("final_concat"),
     )
     uid_col = "video_uid" if config["dataset"]["name"].endswith("v2") else "video_id"
+    hand_lookup = build_hand_lookup(run)
+    narr_embed_lookup, narr_embedder = build_narration_vectors(narr_args)
 
     def make(df):
         return EgoNaoDataset(annots=df, frames_dir=os.path.join(root, "object_frames"),
                              noun_mapping=noun_mapping, verb_mapping=verb_mapping, aug=aug,
                              narration_lookup=lookup, uid_col=uid_col,
-                             verb_bg=run.get("verb_bg", False))
+                             verb_bg=run.get("verb_bg", False), hand_pose_lookup=hand_lookup,
+                             narration_embedding_lookup=narr_embed_lookup,
+                             narration_embedding_dim=narr_args.get("size", 384),
+                             narration_embedder=narr_embedder)
 
     train_ds, val_ds, test_ds = make(train_df), make(val_df), make(test_df)
     cutoff = ds_args.get("label_cutoff", {})
@@ -225,8 +259,55 @@ def build_trainer_data(config: dict, debug: bool = False) -> TrainerData:
     freqs = frequencies_to_array(noun_verb_frequencies(train_df, noun_mapping, verb_mapping),
                                  train_ds.num_nouns, train_ds.num_verbs)
     tokenizer = build_tokenizer(narr_args.get("model_v", "all-MiniLM-L12-v2"))
+    type_names = tuple(narr_args.get("type_embeddings") or ())
+    if type_names and hasattr(tokenizer, "encode_batch_with_types"):
+        tokenizer.type_names = type_names
     return TrainerData(train_ds, val_ds, test_ds, noun_mapping, verb_mapping, noun_w, verb_w,
                        freqs, aug, tokenizer)
+
+
+def build_hand_lookup(run: dict):
+    """The FrankMocap hand history of the transformer TTC head
+    (``run.hand_args``): a :class:`HandPoseLookup` over the cache at
+    ``hand_args.path`` (environment variables expanded), zero-filled hands
+    where that file is missing, None without ``hand_args.use``."""
+    from transfusion_torch.data.hand_pose import HandPoseLookup, ZeroHandLookup
+
+    hand_args = run.get("hand_args") or {}
+    if not hand_args.get("use"):
+        return None
+    path = os.path.expandvars(hand_args.get("path", ""))
+    if path and os.path.isfile(path):
+        return HandPoseLookup(path, hand_args.get("num_steps", 5), hand_args.get("step", 5))
+    log.warning("hand_args.use set but cache %r missing; hand inputs zero-filled", path)
+    return ZeroHandLookup(hand_args.get("num_steps", 5))
+
+
+def build_narration_vectors(narr_args: dict):
+    """(uid -> vector lookup, narration embedder) of the identity text
+    tower, else (None, None): the GloVe variant (``type: glove``,
+    ``$DATA/glove.6B.{size}d.txt`` pooled per narration; an empty lookup,
+    so zero vectors, where the table is missing), or for a non-learnable
+    text pooling the pickle ``NARR_EMBED_CACHE`` of {uid: vector} (an empty
+    lookup without it)."""
+    tp = narr_args.get("text_pooling", "sbert_finetune")
+    if narr_args.get("type") == "glove":
+        from transfusion_torch.data.glove import GloveNarrationEmbedder
+
+        embedder = GloveNarrationEmbedder.from_env(size=narr_args.get("size", 300),
+                                                   pooling=narr_args.get("pooling", "max"),
+                                                   normalize=narr_args.get("normalize", True))
+        return ({} if embedder is None else None), embedder
+    if narr_args.get("pooling") == "sbert" or tp not in ("sbert_finetune", "gpt2", "t5-wikihow"):
+        cache = os.environ.get("NARR_EMBED_CACHE", "")
+        if cache and os.path.isfile(cache):
+            import pickle
+
+            with open(cache, "rb") as fp:
+                return pickle.load(fp), None
+        log.warning("identity text tower without NARR_EMBED_CACHE; zero language_f")
+        return {}, None
+    return None, None
 
 
 @dataclass
@@ -391,7 +472,8 @@ class EgoNaoTrainer:
             t = torch.from_numpy(np.asarray(x))
             return (t.long() if t.dtype == torch.int32 else t).to(self.device, non_blocking=True)
 
-        out = {k: put(batch[k]) for k in ("image", "input_ids", "attention_mask", "visual_features")
+        out = {k: put(batch[k]) for k in ("image", "input_ids", "attention_mask", "visual_features",
+                                          "hand_boxes", "hand_poses", "type_mask", "language_f")
                if k in batch}
         if with_targets and "targets" in batch:
             out["targets"] = {k: put(v) for k, v in batch["targets"].items()}
@@ -409,7 +491,7 @@ class EgoNaoTrainer:
         narr = self.run["narration_embeds"]["args"]
         mult = unfreeze_multipliers(
             self.model.named_parameters(), epoch, self.config["model"], narr.get("train_ep", -1),
-            narr.get("finetune_layers", 1), self.model_cfg.bert.num_layers,
+            narr.get("finetune_layers", 1), tower_depth(self.model_cfg),
             self.run.get("freeze_backbone_at_epoch", -1), text_encoder=self.model_cfg.text_encoder)
         agg: dict = {}
         n_steps = 0

@@ -1,8 +1,9 @@
 """Training losses with static shapes (port of
 ``transfusion_tpu/train/losses.py:24-177``): smooth-L1 box loss (beta 1/9),
 the torchvision RPN loss over a fixed per-image sample, the
-class-weighted cross entropies of the reference trainer and the LM head's
-cross entropy. Every function
+class-weighted cross entropies of the reference trainer, the linear and
+transformer TTC heads' smooth-L1 and the LM head's cross entropy. Every
+function
 takes validity masks: padded rows (label -1) drop out of the sums with the
 normalisations the dynamic-shape reference computes. The RPN sampler takes
 its uniform keys as ``draws`` (see :mod:`transfusion_torch.ops.matcher`).
@@ -101,6 +102,19 @@ def ttc_loss(ttc_preds, ttc_targets, verb_labels, beta: float, ttc_bg: bool = Fa
         targets = ttc_targets
         valid = valid & ~is_bg
     losses = smooth_l1(ttc_preds.float() - targets, beta)
+    count = valid.sum()
+    total = torch.where(valid, losses, 0.0).sum()
+    return torch.where(count > 0, total / torch.clamp(count, min=1), 0.0)
+
+
+def ttc_hand_loss(ttc_preds, det_valid, gt_ttcs, beta: float):
+    """The transformer TTC head's criterion: each image's first GT TTC is
+    repeated over its detections [B, K]; non-finite targets, invalid
+    detections and negative (placeholder) predictions drop out; the
+    smooth-L1 (beta) mean over what is left, 0 where nothing is."""
+    tgt = gt_ttcs[:, :1].to(device=ttc_preds.device, dtype=torch.float32).expand(ttc_preds.shape)
+    valid = det_valid & torch.isfinite(tgt) & (ttc_preds >= 0)
+    losses = smooth_l1(ttc_preds.float() - torch.where(valid, tgt, 0.0), beta)
     count = valid.sum()
     total = torch.where(valid, losses, 0.0).sum()
     return torch.where(count > 0, total / torch.clamp(count, min=1), 0.0)

@@ -2,7 +2,8 @@
 forward with target assignment and RoI sampling, the 6-slot criterion of the
 reference trainer, backward, the optimizer chain of :mod:`.optim`, and the
 epoch freeze multipliers, with the non-finite guard; the eval step (forward
-and postprocess) and the eval step with validation losses.
+and postprocess, then the transformer TTC head's pass where the model has
+it) and the eval step with validation losses.
 
 Mixed precision: parameters stay f32 and every module casts them to the
 compute dtype at use (bf16 on the flagship). Autograd therefore forms each
@@ -82,8 +83,15 @@ def compute_losses(outputs, batch, loss_cfg: LossConfig, noun_w, verb_w, rpn_dra
     noun_l = L.noun_loss(roi["class_logits"], nouns, noun_w) if loss_cfg.noun_on else zero
     verb_l = (L.verb_loss(roi["verb_logits"], verbs, verb_w, loss_cfg.verb_bg)
               if loss_cfg.verb_on else zero)
-    ttc_l = (L.ttc_loss(roi["ttcs"], ttcs_t, verbs, loss_cfg.ttc_beta, loss_cfg.ttc_bg,
-                        loss_cfg.ttc_bg_val) if loss_cfg.ttc_on else zero)
+    if loss_cfg.ttc_on and "ttc_hand" in outputs:
+        # The transformer TTC head's second pass.
+        th = outputs["ttc_hand"]
+        ttc_l = L.ttc_hand_loss(th["ttcs"], th["valid"], batch["targets"]["ttcs"], loss_cfg.ttc_beta)
+    elif loss_cfg.ttc_on:
+        ttc_l = L.ttc_loss(roi["ttcs"], ttcs_t, verbs, loss_cfg.ttc_beta, loss_cfg.ttc_bg,
+                           loss_cfg.ttc_bg_val)
+    else:
+        ttc_l = zero
     lm_l = (L.lm_loss(outputs["lm"], batch["targets"], loss_cfg.last_noun_idx)
             if loss_cfg.lm_on else zero)
     stacked = torch.stack([bbox, obj_l + rpn_box_l, noun_l, verb_l, ttc_l, lm_l])
@@ -188,15 +196,25 @@ def _freqs(noun_verb_frequencies, device):
 
 def make_eval_step(model, detector_cfg, noun_verb_frequencies=None):
     """Returns ``step_fn(batch) -> detections``: the eval forward and the
-    postprocess, fixed-shape detections [B, K, ...] on the model's device."""
+    postprocess, fixed-shape detections [B, K, ...] on the model's device,
+    with the transformer TTC head's pass over them where the model has the
+    head and the batch the hand history."""
     freqs = _freqs(noun_verb_frequencies, model.device)
 
     @torch.no_grad()
     def step_fn(batch):
         model.eval()
-        return detections_from_outputs(model(batch), detector_cfg, noun_verb_frequencies=freqs)
+        outputs = model(batch)
+        dets = detections_from_outputs(outputs, detector_cfg, noun_verb_frequencies=freqs)
+        return _second_pass(model, dets, outputs, batch)
 
     return step_fn
+
+
+def _second_pass(model, dets, outputs, batch):
+    if model.tcfg.ttc_hand is None or "hand_boxes" not in batch:
+        return dets
+    return model.predict_ttc(dets, outputs["roi_outputs"], batch, batch["image_hw"])
 
 
 def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_w,
@@ -220,6 +238,12 @@ def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_
         outputs = model.eval_with_losses(batch, draws.get("roi"),
                                          torch.Generator(device=dev).manual_seed(0))
         dets = detections_from_outputs(outputs["eval"], detector_cfg, noun_verb_frequencies=freqs)
+        dets = _second_pass(model, dets, outputs["eval"], batch)
+        if model.tcfg.ttc_hand is not None and "hand_boxes" in batch:
+            # With the transformer head the per-RoI ttc is a placeholder: the
+            # validation TTC loss scores the second pass's detections.
+            k = min(model.tcfg.max_ttc_boxes, dets["ttcs"].shape[1])
+            outputs["loss"]["ttc_hand"] = {"ttcs": dets["ttcs"][:, :k], "valid": dets["valid"][:, :k]}
         rpn_draws = draws.get("rpn")
         if rpn_draws is None:
             rpn_draws = uniform_draws(outputs["loss"]["proposals"]["objectness"].shape,

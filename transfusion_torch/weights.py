@@ -4,9 +4,12 @@ random from a seed.
 :func:`state_dict_from_jax` is the inverse of
 ``transfusion_tpu/tools/translate_checkpoint.py::translate_reference_checkpoint``:
 it takes a TransFusion param tree (numpy leaves, built with the plain 7x7
-stem) of any fusion family and option and returns the port's state dict
-under the reference torch names (JAX's module names where the reference
-has none: see :mod:`transfusion_torch.models.transfusion`). It
+stem) of any fusion family and option, language tower and TTC head and
+returns the port's state dict under the reference torch names (JAX's
+module names where the reference has none: see
+:mod:`transfusion_torch.models.transfusion`). The translator has no
+mapping for the transformer TTC head or the sbert type embeddings, so those
+weights cross from JAX to the port only. It
 undoes the translator's four layout changes: HWIO -> OIHW convs, the fc6
 column order (y, x, c) -> (c, y, x), the back-projection fold order
 (ph, pw, C) -> (C, ph, pw) (rows and bias), and the split q/k/v projections
@@ -104,6 +107,70 @@ def _bert(bert: dict, out: dict):
             out[f"{base}.{dst}.bias"] = np.asarray(node[src]["bias"])
 
 
+def _gpt2(tower: dict, out: dict):
+    """GPT-2: the Conv1D weights keep flax's [in, out] kernel layout."""
+    base = "narr_pooling_layer.encoder.transformer"
+    out[f"{base}.wte.weight"] = np.asarray(tower["wte"]["embedding"])
+    out[f"{base}.wpe.weight"] = np.asarray(tower["wpe"])
+    _norm(out, f"{base}.ln_f", tower["ln_f"])
+    for i, blk in _layers("h", tower):
+        for ln in ("ln_1", "ln_2"):
+            _norm(out, f"{base}.h.{i}.{ln}", blk[ln])
+        for src, dst in (("c_attn", "attn.c_attn"), ("c_proj", "attn.c_proj"),
+                         ("mlp_fc", "mlp.c_fc"), ("mlp_proj", "mlp.c_proj")):
+            out[f"{base}.h.{i}.{dst}.weight"] = np.asarray(blk[src]["kernel"])
+            out[f"{base}.h.{i}.{dst}.bias"] = np.asarray(blk[src]["bias"])
+
+
+def _t5(tower: dict, out: dict):
+    base = "narr_pooling_layer.encoder"
+    out[f"{base}.shared.weight"] = np.asarray(tower["shared"]["embedding"])
+    out[f"{base}.encoder.final_layer_norm.weight"] = np.asarray(tower["final_norm"]["scale"])
+    for i, blk in _layers("block", tower):
+        b = f"{base}.encoder.block.{i}.layer"
+        for p in ("q", "k", "v", "o"):
+            out[f"{b}.0.SelfAttention.{p}.weight"] = _lin(blk[p]["kernel"])
+        if "relative_attention_bias" in blk:
+            out[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = np.asarray(
+                blk["relative_attention_bias"])
+        out[f"{b}.0.layer_norm.weight"] = np.asarray(blk["ln_attn"]["scale"])
+        out[f"{b}.1.layer_norm.weight"] = np.asarray(blk["ln_ff"]["scale"])
+        for p in ("wi", "wi_0", "wi_1", "wo"):
+            if p in blk:
+                out[f"{b}.1.DenseReluDense.{p}.weight"] = _lin(blk[p]["kernel"])
+
+
+def _narr_encoder(narr: dict, out: dict):
+    """The sbert tower (``bert``, type embeddings ``type_<name>``) or a
+    GPT-2 / T5 tower (``encoder``), and ``out_mlp``."""
+    if "bert" in narr:
+        _bert(narr["bert"], out)
+    elif "wte" in narr["encoder"]:
+        _gpt2(narr["encoder"], out)
+    else:
+        _t5(narr["encoder"], out)
+    for name, v in narr.items():
+        if name.startswith("type_"):
+            out[f"narr_pooling_layer.type_embeddings.{name.removeprefix('type_')}"] = np.asarray(v)
+    if "out_mlp" in narr:
+        _dense(out, "narr_pooling_layer.out_mlp", narr["out_mlp"])
+
+
+def _ttc_head(node: dict, out: dict):
+    """The transformer TTC head under JAX's names (no reference names)."""
+    base = "ttc_hand_head"
+    for name, v in node.items():
+        if name.endswith("_enc") or name == "cls_token":
+            out[f"{base}.{name}"] = np.asarray(v)
+        elif name in ("object_feat_embedder", "ttc_out"):
+            _dense(out, f"{base}.{name}", v)
+        elif name.endswith("_embedder"):
+            for fc in ("fc1", "fc2"):
+                _dense(out, f"{base}.{name}.{fc}", v[fc])
+    for j, lay in _layers("layer", node):
+        _encoder_layer(f"{base}.layers.{j}", lay, out)
+
+
 def _norm(out: dict, name: str, node: dict):
     out[f"{name}.weight"] = np.asarray(node["scale"])
     out[f"{name}.bias"] = np.asarray(node["bias"])
@@ -192,11 +259,10 @@ def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
     params = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
     out: dict = {}
     _rcnn(params["rcnn"], out)
-    narr = params.get("narr_encoder")
-    if narr is not None:
-        _bert(narr["bert"], out)
-        if "out_mlp" in narr:
-            _dense(out, "narr_pooling_layer.out_mlp", narr["out_mlp"])
+    if "narr_encoder" in params:
+        _narr_encoder(params["narr_encoder"], out)
+    if "ttc_hand_head" in params:
+        _ttc_head(params["ttc_hand_head"], out)
     levels = sorted(int(k.split("_")[1]) for k in params if re.fullmatch(r"fusion_\d+", k))
     order = list(fpn_features) if fpn_features is not None else levels
     for i, lvl in enumerate(order):
@@ -209,7 +275,7 @@ def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
         _lm_head("lm_layer", params["lm_layer"], out)
     for j, node in _layers("lm_layer", params):
         _lm_head(f"lm_layers.{j}", node, out)
-    known = re.compile(r"rcnn|narr_encoder|lm_layer(_\d+)?|shared_layer_\d+|(vis_)?fusion_\d+")
+    known = re.compile(r"rcnn|narr_encoder|ttc_hand_head|lm_layer(_\d+)?|shared_layer_\d+|(vis_)?fusion_\d+")
     unknown = [k for k in params if not known.fullmatch(k)]
     if unknown:
         raise NotImplementedError(f"params not ported yet: {sorted(unknown)}")
@@ -268,9 +334,11 @@ def radam_state_from_jax(opt_state, param_names, fpn_features=None) -> dict:
 def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Seeded random weights, made on the host with a ``torch.Generator``
     and copied to the model's device: fan-in scaled normal weights, zero
-    biases, identity frozen BN and LayerNorms, unit-normal kind embeddings
-    and learned positions and zero ``zero`` positions (the JAX inits),
-    0.02-normal BERT embeddings, 0.01-normal RoI predictors."""
+    biases, identity frozen BN, LayerNorms and RMSNorms, unit-normal kind
+    embeddings, learned positions, T5 position-bias tables and TTC-head
+    encodings and CLS token, type embeddings normal(1 / init_div), zero
+    ``zero`` positions (the JAX inits), 0.02-normal token and position
+    embeddings of the towers, 0.01-normal RoI predictors."""
     gen = torch.Generator().manual_seed(seed)
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         if name.endswith(("running_mean", "table")):
@@ -280,16 +348,24 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         elif name.endswith("pos.pos_embedding"):
             learned = model.get_submodule(name.removesuffix(".pos_embedding")).kind == "learned"
             val = torch.randn(t.shape, generator=gen) if learned else torch.zeros(t.shape)
-        elif name.endswith("kind_embedding"):
+        elif name.endswith(("kind_embedding", "_enc", "cls_token")):
             val = torch.randn(t.shape, generator=gen)
-        elif "embeddings" in name and t.dim() == 2:
+        elif ".type_embeddings." in name:
+            div = model.get_submodule(name.split(".type_embeddings.")[0]).type_embedding_init_div
+            val = torch.randn(t.shape, generator=gen) / div
+        elif name.endswith("relative_attention_bias.weight"):
+            val = torch.randn(t.shape, generator=gen)
+        elif ("embeddings" in name or name.endswith(("wte.weight", "wpe.weight", "shared.weight"))) \
+                and t.dim() == 2:
             val = torch.randn(t.shape, generator=gen) * 0.02
         elif t.dim() == 1:
             is_scale = name.endswith("weight") and ("norm" in name.lower() or ".bn" in name
-                                                    or "downsample.1" in name or ".ln." in name)
+                                                    or "downsample.1" in name or ".ln." in name
+                                                    or re.search(r"\.ln_(\d|f)\.", name))
             val = torch.ones(t.shape) if is_scale else torch.zeros(t.shape)
         else:
-            fan_in = int(np.prod(t.shape[1:]))
+            # GPT-2's Conv1D weights are [in, out].
+            fan_in = t.shape[0] if ".transformer.h." in name else int(np.prod(t.shape[1:]))
             std = 0.01 if re.search(r"roi_heads\.(noun|verb|box_regressor|ttc)", name) else fan_in ** -0.5
             val = torch.randn(t.shape, generator=gen) * std
         if val is not None:
