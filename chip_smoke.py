@@ -75,7 +75,18 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    steps after a warm-up each; launches as EXPECTED_TOWERS predicts,
    finite losses, a non-zero TTC loss whose gradient reaches the head and
    nothing upstream of its detached inputs, non-zero gradients upstream of
-   K2-K4 and K6; eval s, step s, peak memory and the phase's wall time.
+   K2-K4 and K6; eval s, step s, peak memory and the phase's wall time;
+9. trainable BatchNorm and data parallelism (``dp_run_config()``: the
+   flagship with ``model.batch_norm.use`` and the trunk training from epoch
+   0, 16 train and 8 val examples, B 8 global): (a) one rank: ``fit(1)``,
+   K1-K6 each launched, the BatchNorm against its plain version at every
+   shape of the step and its share of the step; (b) a world of 1 over
+   NCCL, replicated and fully sharded, against (a), and a resume bit for
+   bit; (c) two ranks on the one card over gloo with CUDA tensors, B 4
+   each: ``fit(1)`` against (a) (DP_TOL), the gradient all-reduce timed,
+   a sharded evaluation of (a)'s checkpoint against (a)'s mAP and result
+   keys; a collective gloo refuses on CUDA tensors is reported, and its
+   two-rank check is left to the CPU tests.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -145,6 +156,9 @@ EXPECTED_PER_VAL_BATCH = {"layer_norm": 5, "residual_layer_norm": 56, "attention
                           "roi_align_fwd": 2}
 N0, HEADS, HEAD_DIM = 3136, 4, 224  # fusion level 0: 3072 visual + 64 language tokens
 DROPOUT = 0.15  # token_dropout, the rate K2 runs at in training
+# A non-zero index of a rank's first image in a data-parallel global batch:
+# the dropout checks of K2-K4 run at it, as a rank past the first does.
+OFFSET = 3
 
 
 def log(msg: str) -> None:
@@ -428,18 +442,22 @@ def _attention_bound(flops: float, tensors: int, d_rows: int = 0):
 
 
 def phase_attention_dropout(torch):
-    """K2 with probability dropout at rate 0.15: its output against the plain
-    version, and its keep mask bit for bit over every (cell, query, key) of
-    level 0. With q = k = 0 every probability is 1 / N before dropout, so a
-    one-hot V over a window of 224 keys reads those keys' keep bits out of
-    the output; 14 windows cover the 3136 keys."""
+    """K2 with probability dropout at rate 0.15, its images at the global
+    batch offset OFFSET: its output against the plain version, and its keep
+    mask bit for bit over every (cell, query, key) of level 0. With q = k =
+    0 every probability is 1 / N before dropout, so a one-hot V over a
+    window of 224 keys reads those keys' keep bits out of the output; 14
+    windows cover the 3136 keys. A rank's launch on the global batch's last
+    half (offset B / 2) gives that half of the whole batch's output bit for
+    bit."""
     from transfusion_torch.ops import attention as at
 
     q, k, v, mask, g = _attention_inputs(torch, 4)
     seed = -1234567
-    log(f"[attention_fwd_dropout] q/k/v [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {DROPOUT}")
-    got = at.attention_fwd(q, k, v, mask, DROPOUT, seed)
-    want, _ = at.attention_plain(q, k, v, mask, DROPOUT, seed)
+    log(f"[attention_fwd_dropout] q/k/v [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {DROPOUT}, "
+        f"batch offset {OFFSET}")
+    got = at.attention_fwd(q, k, v, mask, DROPOUT, seed, batch_offset=OFFSET)
+    want, _ = at.attention_plain(q, k, v, mask, DROPOUT, seed, OFFSET)
     torch.cuda.synchronize()
     err = max_err(got, want)
     scale = float(want.float().abs().max())
@@ -447,14 +465,21 @@ def phase_attention_dropout(torch):
     mean_rel = float((got.float() - want.float()).abs().mean() / want.float().abs().mean())
     check("attention dropout bf16 output", mean_rel, 2.0 ** -7, "mean|kernel - plain| / mean|plain|")
     del want
-    keep = at.dropout_keep_mask(B, HEADS, N0, seed, DROPOUT, "cuda")
+    whole = at.attention_fwd(q, k, v, mask, DROPOUT, seed)
+    half = at.attention_fwd(q[B // 2:], k[B // 2:], v[B // 2:], mask[B // 2:], DROPOUT, seed,
+                            batch_offset=B // 2)
+    check("attention dropout, the last half at its offset", float((half != whole[B // 2:]).sum()),
+          0.0, "elements differing from the whole batch's")
+    del whole, half
+    keep = at.dropout_keep_mask(B, HEADS, N0, seed, DROPOUT, "cuda", batch_offset=OFFSET)
     zeros = torch.zeros(B, N0, HEADS, HEAD_DIM, dtype=torch.bfloat16, device="cuda")
     eye = torch.eye(HEAD_DIM, dtype=torch.bfloat16, device="cuda")
     mismatches = 0
     for w0 in range(0, N0, HEAD_DIM):
         vw = torch.zeros_like(zeros)
         vw[:, w0:w0 + HEAD_DIM] = eye[None, :, None, :]
-        bits = at.attention_fwd(zeros, zeros, vw, None, DROPOUT, seed) > 0      # [B, N, H, 224]
+        bits = at.attention_fwd(zeros, zeros, vw, None, DROPOUT, seed,
+                                batch_offset=OFFSET) > 0                         # [B, N, H, 224]
         mismatches += int((bits.permute(0, 2, 1, 3) != keep[..., w0:w0 + HEAD_DIM]).sum())
     kept = float(keep.float().mean())
     log(f"  keep bits compared: {keep.numel()}, kept share {kept:.5f} (1 - rate = {1 - DROPOUT})")
@@ -476,8 +501,9 @@ def phase_attention_dropout(torch):
 
 
 def phase_attention_bwd(torch):
-    """K3 (dQ) and K4 (dK, dV) at rate 0.15 and at rate 0 against the plain
-    backward from the same forward output and statistics. The backward
+    """K3 (dQ) and K4 (dK, dV) at rate 0.15 (at the batch offset OFFSET) and
+    at rate 0 against the plain backward from the same forward output and
+    statistics. The backward
     rounds dS to bf16 from probabilities the two sides compute with
     different exp routines, so a dS may land one ulp apart: outputs are held
     at four bf16 ulps of max|plain| and a mean difference under 2^-7 of
@@ -490,11 +516,13 @@ def phase_attention_bwd(torch):
     seed = 424242
     errs = {}
     for rate in (0.0, DROPOUT):
-        log(f"[attention_bwd] q/k/v/o/dO [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {rate}")
-        out, stats = at.attention_fwd(q, k, v, mask, rate, seed, return_stats=True)
-        got = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed)
-        again = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed)
-        want = at.attention_bwd_plain(q, k, v, out, stats, dout, mask, rate, seed)
+        off = OFFSET if rate else 0
+        log(f"[attention_bwd] q/k/v/o/dO [{B}, {N0}, {HEADS}, {HEAD_DIM}] bf16, rate {rate}, "
+            f"batch offset {off}")
+        out, stats = at.attention_fwd(q, k, v, mask, rate, seed, return_stats=True, batch_offset=off)
+        got = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed, off)
+        again = at.attention_bwd(q, k, v, out, stats, dout, mask, rate, seed, off)
+        want = at.attention_bwd_plain(q, k, v, out, stats, dout, mask, rate, seed, off)
         torch.cuda.synchronize()
         for name, a, b, a2 in zip(("dq", "dk", "dv"), got, want, again):
             err = max_err(a, b)
@@ -1092,14 +1120,18 @@ class MemoryDataset:
         return ex
 
 
-def trainer_data(np, seed: int = 0):
+def trainer_data(np, seed: int = 0, hw=None, n_train: int | None = None,
+                 n_val: int | None = None, lang: int | None = None):
     """A TrainerData of synthetic examples in the v2 label space (87 nouns +
-    background, 74 verbs + background), 1-2 GT boxes an image."""
+    background, 74 verbs + background), 1-2 GT boxes an image: ``n_train``
+    and ``n_val`` examples at ``hw`` (default: the trainer phase's), with
+    ``lang`` tokens."""
     from transfusion_torch.data.tokenizer import hash_vocab_tokenizer
     from transfusion_torch.data.transforms import AugConfig
     from transfusion_torch.runner.trainer import TrainerData
     from transfusion_torch.train.losses import build_class_weights
 
+    h, w = hw or (H, W)
     rng = np.random.default_rng(seed)
     nouns = {f"noun{i}": i + 1 for i in range(87)}
     verbs = {f"verb{i}": i for i in range(74)}
@@ -1107,24 +1139,25 @@ def trainer_data(np, seed: int = 0):
 
     def example(uid):
         g = int(rng.integers(1, 3))
-        xy = rng.uniform(0, 0.7, (g, 2)) * [W, H]
-        wh = rng.uniform(0.06, 0.3, (g, 2)) * [W, H]
+        xy = rng.uniform(0, 0.7, (g, 2)) * [w, h]
+        wh = rng.uniform(0.06, 0.3, (g, 2)) * [w, h]
         n = rng.integers(0, 87, g)
         v = rng.integers(0, 74, g)
-        return {"image": rng.normal(0, 0.7, (H, W, 3)).astype(np.float32),
+        return {"image": rng.normal(0, 0.7, (h, w, 3)).astype(np.float32),
                 "boxes": np.concatenate([xy, xy + wh], 1).astype(np.float32),
                 "nouns": (n + 1).astype(np.int32), "verbs": v.astype(np.int32),
                 "ttcs": np.full(g, rng.uniform(0.3, 1.8), np.float32), "id": uid,
-                "orig_shape": (H, W),
+                "orig_shape": (h, w),
                 "narration": " and ".join(f"{verb_names[a]} {noun_names[b]}" for a, b in zip(v, n))}
 
-    aug = AugConfig(resize_spec=((H,), (W,)), crop_spec=(1, 1), flip=False)
-    train = MemoryDataset([example(f"train_{i:04d}") for i in range(TRAINER_TRAIN)], aug, 88, 75)
-    val = MemoryDataset([example(f"val_{i:04d}") for i in range(TRAINER_VAL)], aug, 88, 75)
+    aug = AugConfig(resize_spec=((h,), (w,)), crop_spec=(1, 1), flip=False)
+    train = MemoryDataset([example(f"train_{i:04d}") for i in range(n_train or TRAINER_TRAIN)],
+                          aug, 88, 75)
+    val = MemoryDataset([example(f"val_{i:04d}") for i in range(n_val or TRAINER_VAL)], aug, 88, 75)
     noun_w, verb_w = build_class_weights(np.ones(88), np.ones(74), 1, True, False)
     freqs = ((rng.uniform(0, 1, (88, 75)) > 0.7) * rng.integers(1, 50, (88, 75))).astype(np.float32)
     return TrainerData(train, val, val, nouns, verbs, noun_w, verb_w, freqs, aug,
-                       hash_vocab_tokenizer(max_length=TRAINER_LANG))
+                       hash_vocab_tokenizer(max_length=lang or TRAINER_LANG))
 
 
 def check_ln_shapes(torch, g, shapes, tag: str) -> None:
@@ -1886,6 +1919,430 @@ def _trace(torch, what: str, fn):
             "top_host_ms": {e.key: e.self_cpu_time_total / 1e3 for e in host}}
 
 
+# ------------------------------------------ phase 9: data parallel, trainable BN
+# flagship_run_config() with trainable BatchNorm (momentum 0.1) and the whole
+# trunk training from epoch 0 (train_ep 0, trainable_layers 5: no tape cut,
+# so every BatchNorm's backward runs), on DP_TRAIN / DP_VAL in-memory
+# examples: 2 train steps and 1 validation batch of B 8 global.
+DP_TRAIN, DP_VAL = 16, 8
+PATH_KERNELS = ("layer_norm", "residual_layer_norm", "attention_fwd", "attention_fwd_dropout",
+                "attention_bwd_dq", "attention_bwd_dkv", "roi_align_fwd", "roi_align_bwd")
+# A run against the one-rank run (a) from the same initial parameters, in
+# bf16: the training loss within 2e-2 relative, the median running average
+# within 1e-2 and the median tensor's update within 2.5e-1 in relative L2
+# norm; each loss term, the largest tensor's error and the mAP are
+# recorded, not held. At B 4 a bf16 product may round otherwise than at
+# B 8 (cuDNN picks by shape), which moves RPN proposals of near-tied
+# random-weight scores across the sampler and with them a few positive
+# RoIs: the box loss term then differs by 6-25 % and its gradient reaches
+# every tensor (two card runs read medians of 0.108 and 0.152; the total
+# loss 2.7e-4 and 7.8e-4, the running averages 2.7e-4). The f32 CPU tests
+# hold the same runs to 1e-4 (tests/test_torch_parallel.py).
+DP_TOL = {"loss": 2e-2, "update": 2.5e-1, "stats": 1e-2}
+
+
+def dp_run_config(fsdp: bool = False) -> dict:
+    cfg = flagship_run_config()
+    cfg["model"].update(train_ep=0, trainable_layers=5, batch_norm={"use": True, "momentum": 0.1})
+    cfg["run"]["fsdp"] = fsdp
+    return cfg
+
+
+def dp_fit(torch, np, run_dir: str, fsdp: bool = False, bn_calls: list | None = None) -> dict:
+    """fit(1) of dp_run_config() with its launches, step times and peak
+    memory; ``bn_calls`` collects the trainable BatchNorms' input shapes of
+    the first train step."""
+    import shutil
+
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.ops.batch_norm import BatchNorm
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+
+    shutil.rmtree(run_dir, ignore_errors=True)
+    trainer = EgoNaoTrainer(dp_run_config(fsdp), run_dir, data=trainer_data(np, n_train=DP_TRAIN,
+                                                                            n_val=DP_VAL))
+    trainer.ensure_state()
+    init = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.named_parameters()}
+    hooks = []
+    if bn_calls is not None:
+        norms = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
+
+        def grab(mod, args):
+            if mod.training and len(bn_calls) < len(norms):  # the first train step's
+                bn_calls.append((tuple(args[0].shape), args[0].dtype))
+        hooks = [m.register_forward_pre_hook(grab) for m in norms]
+    counts: dict = {}
+    train_s: list = []
+    val_s: list = []
+    trainer.train_step = _counted(torch, trainer.train_step, "train", counts, train_s)
+    trainer.eval_loss_step = _counted(torch, trainer.eval_loss_step, "val", counts, val_s)
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    rec = trainer.fit(1)[0]
+    launches = dict(LAUNCHES)
+    for h in hooks:
+        h.remove()
+    missing = [k for k in PATH_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the data-parallel path launched no {missing}")
+    if rec["train_nonfinite_skipped"] != 0.0 or not all(
+            math.isfinite(v) for k, v in rec.items() if k.endswith("loss")):
+        raise AssertionError(f"non-finite loss or a skipped step: {rec}")
+    path = os.path.join(run_dir, "results", "val_epoch0.json")
+    results = json.load(open(path))["results"] if os.path.isfile(path) else None
+    return {"trainer": trainer, "history": rec, "init": init, "launches": launches,
+            "per_step": {k: v / len(train_s) for k, v in counts["train"].items()},
+            "train_s": train_s, "val_s": val_s, "results": results,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def dp_state(trainer) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+
+
+def dp_compare(np, ref: dict, got: dict, init: dict, tag: str) -> dict:
+    """One run (``got``: history, state) against the one-rank run ``ref``
+    from the same initial parameters ``init``, held to DP_TOL."""
+    hist, want = got["history"], ref["history"]
+    terms = {k: abs(hist[k] - v) / max(abs(v), 1e-12) for k, v in want.items()
+             if k.startswith("train_") and k.endswith("loss")}
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+    upd = sorted(rel(got["state"][k] - init[k], ref["state"][k] - init[k]) for k in init)
+    stats = sorted(rel(got["state"][k], v) for k, v in ref["state"].items()
+                   if k.endswith(("running_mean", "running_var")))
+    out = {"loss_rel": terms["train_loss"], "loss_terms_rel": terms,
+           "update_rel_l2_median": float(np.median(upd)), "update_rel_l2_max": upd[-1],
+           "stats_rel_l2_median": float(np.median(stats)), "stats_rel_l2_max": stats[-1],
+           "map_abs": max(abs(hist[k] - v) for k, v in want.items() if k.endswith("_val"))}
+    log(f"  [{tag}] against one rank: {json.dumps(out)}")
+    return out
+
+
+def dp_hold(out: dict, tag: str) -> None:
+    """A comparison of dp_compare held to DP_TOL."""
+    check(f"[{tag}] training loss", out["loss_rel"], DP_TOL["loss"], "relative error")
+    check(f"[{tag}] parameter updates", out["update_rel_l2_median"], DP_TOL["update"],
+          "median relative L2 error")
+    check(f"[{tag}] running averages", out["stats_rel_l2_median"], DP_TOL["stats"],
+          "median relative L2 error")
+
+
+def check_batch_norm(torch, calls: list) -> dict:
+    """The trainable BatchNorm (batch_norm.BatchNormFunction and the running
+    average update) against autograd through its plain formula at each
+    distinct shape the train step gives it, in its dtype: outputs and dx
+    within two ulps of the dtype at the largest magnitude, the statistics,
+    dscale and dbias within 1e-4 relative (f32 sums in another order); then
+    every call of a step timed, forward and backward, against the plain
+    version."""
+    from transfusion_torch.ops.batch_norm import BatchNorm, batch_norm_plain
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    errs: dict = {}
+    for shape, dtype in sorted(set(calls), key=str):
+        c = shape[1]
+        x = (torch.randn(shape, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        cot = torch.randn(shape, device="cuda", generator=g).to(dtype)
+        bn = BatchNorm(c, 0.1).to("cuda")
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.1 * torch.randn(c, device="cuda", generator=g))
+            bn.bias.copy_(0.1 * torch.randn(c, device="cuda", generator=g))
+        w, b = (t.detach().clone().requires_grad_() for t in (bn.weight, bn.bias))
+        xa, xb = (x.detach().clone().requires_grad_() for _ in range(2))
+        y = bn(xa, train=True)
+        y.backward(cot)
+        want, mean, var = batch_norm_plain(xb, w, b)
+        want.backward(cot)
+        ulp = 2 ** -7 if dtype == torch.bfloat16 else 2 ** -23
+        label = f"batch_norm {list(shape)} {str(dtype).split('.')[-1]}"
+        pairs = [("output", y, want, 2 * ulp), ("dx", xa.grad, xb.grad, 2 * ulp),
+                 ("running mean", bn.running_mean, 0.1 * mean, 1e-4),
+                 ("running var", bn.running_var, 0.9 + 0.1 * var, 1e-4),
+                 ("dscale", bn.weight.grad, w.grad, 1e-4), ("dbias", bn.bias.grad, b.grad, 1e-4)]
+        for name, a, ref, tol in pairs:
+            a, ref = a.detach(), ref.detach()
+            err = max_err(a, ref) / max(float(ref.float().abs().max()), 1e-12)
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(f"{label} {name}", err, tol, "max|function - plain| / max|plain|")
+        del x, xa, xb, y, want, cot
+    torch.cuda.empty_cache()
+
+    def fwd_bwd(plain: bool) -> float:
+        total = 0.0
+        for shape, dtype in calls:
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype).contiguous(
+                memory_format=torch.channels_last).requires_grad_()
+            cot = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            bn = BatchNorm(shape[1], 0.1).to("cuda")
+            if plain:
+                total += cuda_ms(lambda: batch_norm_plain(x, bn.weight, bn.bias)[0].backward(cot), 3,
+                                 warmup=1)
+            else:
+                total += cuda_ms(lambda: bn(x, train=True).backward(cot), 3, warmup=1)
+        return total
+
+    bn_ms, plain_ms = fwd_bwd(False), fwd_bwd(True)
+    torch.cuda.empty_cache()
+    log(f"  BatchNorm forward + backward over the step's {len(calls)} calls: {bn_ms:.3f} ms "
+        f"(plain autograd {plain_ms:.3f} ms)")
+    return {"max_rel_err": errs, "step_ms": bn_ms, "plain_step_ms": plain_ms, "calls": len(calls)}
+
+
+def dp_rank(rank: int, world: int, port: int, out_dir: str, ckpt: str) -> None:
+    """Phase 9(c): one of two ranks on the card over gloo with CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from transfusion_torch.parallel import mesh
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, HERE)
+    mesh.init_process_group(rank, world, f"tcp://localhost:{port}", backend="gloo")
+    rec: dict = {"refused": {}}
+    try:
+        torch.cuda.set_device(0)
+        # The collectives of the path, each tried once on CUDA tensors.
+        t = torch.ones(4 * world, device="cuda")
+        probes = {"all_reduce": lambda: torch.distributed.all_reduce(t.clone()),
+                  "all_gather_into_tensor": lambda: torch.distributed.all_gather_into_tensor(
+                      torch.empty(4 * world * world, device="cuda"), t),
+                  "reduce_scatter_tensor": lambda: torch.distributed.reduce_scatter_tensor(
+                      torch.empty(4, device="cuda"), t)}
+        for name, fn in probes.items():
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as e:
+                rec["refused"][name] = str(e).splitlines()[0][:300]
+        modes = ["dp"] + ([] if rec["refused"] else ["fsdp"])
+        for mode in modes:
+            run = dp_fit(torch, np, os.path.join(out_dir, f"c_{mode}"), fsdp=mode == "fsdp")
+            trainer = run.pop("trainer")
+            grads = [p for p in trainer.model.parameters()]
+            flat = [torch.randn_like(p) for p in grads]
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            mesh.all_reduce_sum_(flat)
+            torch.cuda.synchronize()
+            allreduce_s = time.perf_counter() - t0
+            state = dp_state(trainer)
+            digest = torch.stack([v.double().sum() for v in state.values()])
+            rec[mode] = {**{k: v for k, v in run.items() if k != "init"}, "allreduce_s": allreduce_s,
+                         "state": state if rank == 0 else None, "digest": digest,
+                         "sharded": len(trainer.sharding.sharded)}
+            del trainer, flat, grads
+            torch.cuda.empty_cache()
+        evaluator = EgoNaoTrainer(dp_run_config(), os.path.join(out_dir, "c_eval"),
+                                  data=trainer_data(np, n_train=DP_TRAIN, n_val=DP_VAL))
+        evaluator.ensure_state(resume_from=ckpt)
+        rec["eval"] = evaluator.evaluate(0).metrics
+        path = os.path.join(out_dir, "c_eval", "results", "val_epoch0.json")
+        rec["eval_results"] = json.load(open(path))["results"] if rank == 0 else None
+        torch.save(rec, os.path.join(out_dir, f"c_rank{rank}.pt"))
+    finally:
+        mesh.destroy_process_group()
+
+
+def phase_data_parallel(torch, np, smi: str):
+    """Phase 9: trainable BatchNorm and data parallelism at flagship width
+    (dp_run_config: bf16, B 8 global, 768x1024, the trunk training).
+    (a) one rank, no process group: fit(1) (2 train steps, an evaluation
+        with losses), K1-K6 launched, the BatchNorm against its plain
+        version at every shape of the step, and its share of the step;
+    (b) a world of 1 over NCCL: fit(1) replicated and fully sharded, each
+        against (a); a fresh trainer resumed from (b)'s checkpoint holds its
+        state bit for bit and evaluates to the same detections bit for bit;
+    (c) two ranks on the one card over gloo with CUDA tensors, B 4 each:
+        fit(1) replicated (and fully sharded where gloo takes the
+        collectives) against (a), both ranks holding the same parameters;
+        a sharded evaluation of (a)'s checkpoint against (a)'s mAP and
+        result keys."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    # The runs' checkpoints take gigabytes: they stay out of chiprun_out/.
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        rec = _data_parallel(torch, np, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  data-parallel phase wall time {rec['phase_s']:.1f} s")
+    return rec
+
+
+def check_global_draws(torch) -> None:
+    """On the card, a rank's dropout keep masks (bf16 and f32, one and 56
+    rows an image) and sampler keys are the one-rank run's for its images,
+    bit for bit."""
+    from transfusion_torch.models.text_encoder import DropoutRNG
+    from transfusion_torch.ops.matcher import uniform_draws
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ((B, N0, 896), (B * 56, 1280)):
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            per = shape[0] // B
+            whole = DropoutRNG("cuda", 42, 3, (0, B, B)).keep(x, DROPOUT)
+            for start in (0, B // 2):
+                rows = (start, start + B // 2, B)
+                part = DropoutRNG("cuda", 42, 3, rows).keep(x[start * per:(start + B // 2) * per],
+                                                             DROPOUT)
+                check(f"dropout keep, images {start}-{start + B // 2 - 1} of {B}, {list(shape)} "
+                      f"{str(dtype).split('.')[-1]}",
+                      float((part != whole[start * per:(start + B // 2) * per]).sum()), 0.0,
+                      "elements differing from the one-rank draw")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)  # noqa: E731
+    whole = uniform_draws((B, 2000), gen())
+    part = uniform_draws((B // 2, 2000), gen(), rows=(B // 2, B, B))
+    check("sampler keys, the last half", float(sum(int((p != w[B // 2:]).sum())
+                                                    for p, w in zip(part, whole))), 0.0,
+          "keys differing from the one-rank draw")
+
+
+def _data_parallel(torch, np, smi: str, out_dir: str) -> dict:
+    import torch.multiprocessing as mp
+
+    from transfusion_torch.parallel import mesh
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+
+    rec: dict = {"card": smi}
+    check_global_draws(torch)
+
+    log(f"[data parallel] (a) one rank, trainable BN, {DP_TRAIN} train / {DP_VAL} val at {H}x{W}")
+    calls: list = []
+    a = dp_fit(torch, np, os.path.join(out_dir, "a"), bn_calls=calls)
+    trainer = a.pop("trainer")
+    a["state"] = dp_state(trainer)
+    # What a rank sends a step: the gradients of the parameters that train
+    # (f32), and the BatchNorms' sums (forward: x and x^2 and the count;
+    # backward: two gradient sums; f32).
+    from transfusion_torch.runner.trainer import tower_depth, unfreeze_multipliers
+
+    mult = unfreeze_multipliers(trainer.model.named_parameters(), 0, dp_run_config()["model"], -1, 1,
+                                tower_depth(trainer.model_cfg))
+    a["grad_numel"] = sum(p.numel() for k, p in trainer.model.named_parameters() if mult[k])
+    a["bn_sync_bytes"] = sum(4 * (4 * shape[1] + 1) for shape, _ in calls)
+    log(f"  a rank sends {a['grad_numel'] * 4 / 2 ** 20:.1f} MiB of f32 gradients and "
+        f"{a['bn_sync_bytes'] / 2 ** 10:.1f} KiB of BatchNorm sums a step")
+    ckpt = trainer.ckpt.epoch_path(0)
+    del trainer
+    torch.cuda.empty_cache()
+    step_s = a["train_s"][-1]  # the first step also tunes cuDNN
+    log(f"  train step s {[round(t, 4) for t in a['train_s']]}, val batch s "
+        f"{[round(t, 4) for t in a['val_s']]}, peak {a['peak_gib']:.2f} GiB, launches a step "
+        f"{json.dumps(a['per_step'])}")
+    bn = check_batch_norm(torch, calls)
+    bn["share_of_step"] = bn["step_ms"] / (step_s * 1e3)
+    log(f"  BatchNorm share of the {step_s * 1e3:.1f} ms step: {bn['share_of_step']:.3f}")
+    rec["a"] = {k: v for k, v in a.items() if k not in ("state", "init")}
+    rec["batch_norm"] = bn
+
+    log("[data parallel] (b) a world of 1 over NCCL, replicated and fully sharded")
+    mesh.init_process_group(0, 1, f"tcp://localhost:{mesh.free_port()}", backend="nccl")
+    try:
+        for mode in ("dp", "fsdp"):
+            b = dp_fit(torch, np, os.path.join(out_dir, f"b_{mode}"), fsdp=mode == "fsdp")
+            trainer = b.pop("trainer")
+            b["state"] = dp_state(trainer)
+            rec[f"b_{mode}"] = {**{k: v for k, v in b.items() if k not in ("state", "init")},
+                                "against_a": dp_compare(np, a, b, a["init"], f"b {mode}")}
+            dp_hold(rec[f"b_{mode}"]["against_a"], f"b {mode}")
+            if mode == "fsdp":
+                resumed = EgoNaoTrainer(dp_run_config(True), os.path.join(out_dir, "b_resume"),
+                                        data=trainer_data(np, n_train=DP_TRAIN, n_val=DP_VAL))
+                resumed.ensure_state(resume_from=trainer.ckpt.epoch_path(0))
+                got = resumed.model.state_dict()
+                if not all(torch.equal(got[k].cpu(), v) for k, v in b["state"].items()):
+                    raise AssertionError("(b) the resumed trainer's state differs")
+                dets: list = []
+                first: list = []
+                trainer.eval_loss_step = _counted(torch, trainer.eval_loss_step, "x", {}, [], first)
+                resumed.eval_loss_step = _counted(torch, resumed.eval_loss_step, "x", {}, [], dets)
+                trainer.evaluate(0)
+                resumed.evaluate(0)
+                for d0, d1 in zip(first, dets):
+                    bad = [k for k in d0 if not _bits_equal(np, d0[k], d1[k])]
+                    if bad:
+                        raise AssertionError(f"(b) resumed detections differ in {bad}")
+                log("  (b) resumed: state bit for bit, detections bit for bit")
+                del resumed
+            os.remove(os.path.join(trainer.ckpt.epoch_path(0), "state.pt"))
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        mesh.destroy_process_group()
+
+    log("[data parallel] (c) two ranks on the one card over gloo, CUDA tensors, B 4 each")
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(2, mesh.free_port(), out_dir, ckpt), nprocs=2, join=True)
+    log(f"  two ranks ran in {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(os.path.join(out_dir, f"c_rank{r}.pt"), weights_only=False) for r in range(2)]
+    refused = ranks[0]["refused"]
+    if refused:
+        log(f"  gloo refused on CUDA tensors: {json.dumps(refused)}; the fully-sharded two-rank "
+            "check stays with the CPU tests (tests/test_torch_parallel.py)")
+    rec["c_refused"] = refused
+    for mode in ("dp", "fsdp"):
+        if mode not in ranks[0]:
+            continue
+        r0, r1 = ranks[0][mode], ranks[1][mode]
+        if not torch.equal(r0["digest"], r1["digest"]):
+            raise AssertionError(f"(c) {mode}: the two ranks' parameters differ")
+        timed = ("train_time", "train_s_per", "train_decode")
+        if ({k: v for k, v in r0["history"].items() if not k.startswith(timed)}
+                != {k: v for k, v in r1["history"].items() if not k.startswith(timed)}):
+            raise AssertionError(f"(c) {mode}: the two ranks logged different metrics")
+        for r in (r0, r1):
+            missing = [k for k in PATH_KERNELS if not r["launches"].get(k)]
+            if missing:
+                raise AssertionError(f"(c) {mode}: a rank launched no {missing}")
+        cmp = dp_compare(np, a, {"history": r0["history"], "state": r0["state"]}, a["init"],
+                         f"c {mode}")
+        rec[f"c_{mode}"] = {**{k: r0[k] for k in ("history", "per_step", "train_s", "val_s",
+                                                   "peak_gib", "allreduce_s", "sharded")},
+                            "peak_gib_rank1": r1["peak_gib"], "allreduce_s_rank1": r1["allreduce_s"],
+                            "against_a": cmp}
+        log(f"  (c) {mode}: train step s {[round(t, 3) for t in r0['train_s']]} / "
+            f"{[round(t, 3) for t in r1['train_s']]}, peak {r0['peak_gib']:.2f} / "
+            f"{r1['peak_gib']:.2f} GiB, a gradient all-reduce {r0['allreduce_s'] * 1e3:.1f} ms")
+    # The sharded evaluation of (a)'s checkpoint against one rank evaluating
+    # it at the ranks' own batch (val_bs 4): the same result JSON and mAP
+    # bit for bit; against (a)'s evaluation at B 8 the same result keys, the
+    # mAP recorded (bf16 rounding at B 4 and B 8 differs, and 8 images give
+    # about 12 ground-truth boxes: one detection moves the mAP by points).
+    cfg4 = dp_run_config()
+    cfg4["run"]["val_bs"] = B // 2
+    one = EgoNaoTrainer(cfg4, os.path.join(out_dir, "a_eval4"),
+                        data=trainer_data(np, n_train=DP_TRAIN, n_val=DP_VAL))
+    one.ensure_state(resume_from=ckpt)
+    want = one.evaluate(0)
+    want_results = json.load(open(want.result_json_path))["results"]
+    del one
+    ev = ranks[0]["eval"]
+    maps = {k: abs(ev[k] - v) for k, v in want.metrics.items() if k.endswith("_val")}
+    check("(c) sharded evaluation mAP, one rank at B 4", max(maps.values()), 0.0,
+          "max |two ranks - one rank| (points)")
+    check("(c) sharded evaluation result JSON, one rank at B 4",
+          float(ranks[0]["eval_results"] != want_results), 0.0, "differs")
+    if sorted(ranks[0]["eval_results"]) != sorted(a["results"]):
+        raise AssertionError("(c) the sharded evaluation's result keys differ from one rank's")
+    map_b8 = max(abs(ev[k] - v) for k, v in a["history"].items() if k.endswith("_val"))
+    log(f"  (c) sharded evaluation against one rank at B 8: mAP within {map_b8:.3f} points")
+    rec["c_eval"] = {"metrics": ev, "map_abs_b4": max(maps.values()), "map_abs_b8": map_b8}
+    for mode in ("dp", "fsdp"):
+        if f"c_{mode}" in rec:
+            dp_hold(rec[f"c_{mode}"]["against_a"], f"c {mode}")
+    return rec
+
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1940,6 +2397,8 @@ def main() -> int:
     fusion_rec = phase_fusion_options(torch, np, smi)
     torch.cuda.empty_cache()
     towers_rec = phase_towers(torch, np, smi, "--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    dp_rec = phase_data_parallel(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -1953,6 +2412,7 @@ def main() -> int:
         # The record adds the share of the bound reached and, for the products, TFLOP/s.
         records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
                         "trainer_launches": trainer_rec["launches"].get(r["name"], 0),
+                        "data_parallel_launches": dp_rec["a"]["launches"].get(r["name"], 0),
                         **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
                         **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms", "shapes") if k in r}})
         log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
@@ -1965,6 +2425,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
                    "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
+                   "data_parallel": dp_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -150,8 +150,7 @@ def _flagship_with(*changes):
 
 
 @pytest.mark.parametrize("option, path, value", [
-    pytest.param("model.batch_norm.use", ("model", "batch_norm", "use"), True,
-                 id="model.batch_norm.use-path3-True"),
+    pytest.param("model.s2d_stem", ("model", "s2d_stem"), True, id="model.s2d_stem-path3-True"),
     pytest.param("model.type", ("model", "type"), "mobilenet", id="model.type-path5-mobilenet"),
 ])
 def test_build_transfusion_config_refuses_unported_options(option, path, value):

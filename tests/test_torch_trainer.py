@@ -233,8 +233,8 @@ def test_trainer_runs_without_the_file_packages(tmp_path):
     assert os.path.isfile(tmp_path / "run" / "checkpoints" / "epoch_0000" / "state.pt")
 
 
-@pytest.mark.parametrize("flag", [["--mesh-model", "2"], ["--mesh-fsdp"], ["--distributed"],
-                                  ["--devices", "1"], ["--wandb-entity", "x"],
+@pytest.mark.parametrize("flag", [["--mesh-model", "2"], ["--mesh-model", "4"], ["--mesh-model", "8"],
+                                  ["--skip-ssl-verification"], ["--wandb-entity", "x"],
                                   ["--resume-from", "someuser/proj/run:v3"]])
 def test_cli_refuses_unported_flags(flag):
     from transfusion_torch.runner.run_experiment import main
@@ -249,7 +249,9 @@ def test_trainer_refuses_multi_device_arguments(tmp_path):
     sys.path.insert(0, REPO)
     import chip_smoke
 
+    from transfusion_torch.parallel.mesh import Mesh
+
     cfg = chip_smoke.flagship_run_config()
-    for kw in ({"mesh": object()}, {"fsdp": True}, {"tp_min_dim": 64}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    for kw in ({"mesh": Mesh(data=1, model=2)}, {"tp_min_dim": 64}):
+        with pytest.raises(NotImplementedError, match=f"{next(iter(kw))}.*tensor parallelism"):
             EgoNaoTrainer(cfg, str(tmp_path), device="cpu", **kw)

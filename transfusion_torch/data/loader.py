@@ -10,6 +10,14 @@ over processes is by index stride; the order, the per-batch bucket and the
 per-example seeds are the JAX loader's for the same seed and epoch. A batch
 that fails in the producer thread raises in the consumer (the JAX loader ends
 the epoch there without an error).
+
+``rank_slice=(rank, world)`` is the data-parallel mode: the loader walks the
+one-rank run's global batches (order, bucket and per-example seeds drawn as
+there) and yields rank ``rank``'s contiguous slice of each, decoding only
+those examples. A short batch (``drop_last`` off) is first padded to a
+multiple of ``world`` by repeating its last example, as the JAX trainer
+pads before sharding; ``batch["n_real"]`` counts the slice's rows that are
+not padding.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ class DataLoader:
         num_shards: int = 1,
         lang_max_length: int = 128,
         drop_last: bool | None = None,
+        rank_slice: tuple[int, int] | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -50,6 +59,7 @@ class DataLoader:
         self.num_shards = num_shards
         self.lang_max_length = lang_max_length
         self.drop_last = training if drop_last is None else drop_last
+        self.rank_slice = rank_slice
         self.epoch = 0
         # One persistent decode pool per loader (the reference's torch
         # DataLoader keeps 6 workers alive, run_experiment.py:376-395).
@@ -74,6 +84,15 @@ class DataLoader:
         buckets = self.dataset.aug.buckets
         bucket = buckets[rng.integers(len(buckets))] if self.training else self.dataset.aug.eval_bucket()
         seeds = [int(rng.integers(2**31)) for _ in indices]
+        n_real = len(indices)
+        if self.rank_slice is not None:
+            rank, world = self.rank_slice
+            pad = (-len(indices)) % world
+            indices = list(indices) + [indices[-1]] * pad
+            seeds = seeds + [seeds[-1]] * pad
+            b = len(indices) // world
+            indices, seeds = indices[rank * b:(rank + 1) * b], seeds[rank * b:(rank + 1) * b]
+            n_real = max(min(n_real - rank * b, b), 0)
         samples = list(
             self._pool.map(
                 lambda iw: self.dataset.get_example(
@@ -84,6 +103,8 @@ class DataLoader:
         )
         batch = collate(samples, self.tokenizer, self.lang_max_length)
         batch["image_hw"] = bucket
+        if self.rank_slice is not None:
+            batch["n_real"] = n_real
         self.decode_times.append(time.perf_counter() - t0)
         return batch
 

@@ -108,7 +108,8 @@ def build() -> str:
     t0 = time.perf_counter()
     objs, procs = [], []
     for src in srcs:
-        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        # Per process: ranks that build at once do not write one object.
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.{os.getpid()}.o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
@@ -128,6 +129,8 @@ def build() -> str:
     if link.returncode != 0:
         raise RuntimeError(f"kernel library link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib_path)
+    for obj in objs:
+        os.remove(obj)
     BUILD_LOG.update(path=lib_path, seconds=time.perf_counter() - t0, cached=False, ptxas=logs)
     return lib_path
 

@@ -39,6 +39,11 @@ class DetectorConfig:
     fpn_out_channels: int = 256
     stride_in_1x1: bool = True  # adapt_to_detectron
     stage_sizes: tuple = (3, 4, 6, 3)
+    # model.batch_norm (replace_frozen_bn): trainable BatchNorm in the
+    # trunk with this momentum (torch's convention: new = (1 - m) * old +
+    # m * batch).
+    trainable_bn: bool = False
+    bn_momentum: float = 0.1
     s2d_stem: bool = False
     # Frozen-prefix tape cut (units [stem, layer1..layer4]); the flagship
     # trains with 5: the body never unfreezes.
@@ -49,7 +54,8 @@ class DetectorConfig:
 class _Backbone(nn.Module):
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype, cfg.stop_grad_stages)
+        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype, cfg.stop_grad_stages,
+                           cfg.trainable_bn, cfg.bn_momentum)
         chans = [RESNET50_CHANNELS[str(i)] for i in range(len(cfg.stage_sizes))]
         self.fpn = FPN(chans, cfg.fpn_out_channels, cfg.dtype)
 
@@ -78,11 +84,12 @@ class FasterRCNN(nn.Module):
     def device(self) -> torch.device:
         return self.backbone.body.conv1.weight.device
 
-    def forward_features(self, images):
+    def forward_features(self, images, train: bool = False):
         """images [B, H, W, 3] (the JAX batch layout) -> backbone maps
-        {"0".."3"}, NCHW in the channels-last memory format."""
+        {"0".."3"}, NCHW in the channels-last memory format. ``train`` only
+        matters under trainable BN (batch statistics and their update)."""
         x = images.to(self.device).permute(0, 3, 1, 2)
-        return self.backbone.body(x)
+        return self.backbone.body(x, train)
 
     def apply_fpn(self, feats):
         return self.backbone.fpn(feats)
@@ -94,7 +101,7 @@ class FasterRCNN(nn.Module):
         return generate_proposals(objectness, deltas, image_hw, self.cfg.rpn, train)
 
     def apply_roi(self, fpn_feats, rpn_out, image_hw, targets=None, sample: bool = False,
-                  draws=None, generator=None, rng=None):
+                  draws=None, generator=None, rng=None, rows=None):
         """RoI heads over ``propose``'s proposals. Without ``sample``: every
         proposal. With it: targets {boxes [B, G, 4], nouns, verbs, ttcs,
         valid [B, G]} are assigned and S RoIs an image sampled with
@@ -104,7 +111,10 @@ class FasterRCNN(nn.Module):
         training mode. Returns {"roi_outputs", "proposals", "image_sizes"};
         when sampling roi_outputs also carries labels (nouns, verbs, ttcs)
         and reg_targets, and proposals (a copy of ``rpn_out``) the anchor
-        labels and matches."""
+        labels and matches. ``rows`` (start, stop, total) places the batch in
+        a data-parallel global batch: ``generator`` then draws for all
+        ``total`` images and this batch keeps rows start:stop, the draws the
+        one-rank run gives these images."""
         sampled = None
         if sample:
             dev = self.device
@@ -114,7 +124,7 @@ class FasterRCNN(nn.Module):
                 rpn_out["anchors"], targets["boxes"].float(), targets["valid"].bool(), self.cfg.rpn)
             if draws is None:
                 n = rpn_out["boxes"].shape[1] + targets["boxes"].shape[1]
-                draws = uniform_draws((rpn_out["boxes"].shape[0], n), generator, dev)
+                draws = uniform_draws((rpn_out["boxes"].shape[0], n), generator, dev, rows)
             sampled = select_training_samples(rpn_out["boxes"], rpn_out["valid"], targets,
                                               self.cfg.roi, draws)
             rois, roi_valid = sampled["rois"], sampled["valid"]
@@ -130,18 +140,18 @@ class FasterRCNN(nn.Module):
         return {"roi_outputs": roi_outputs, "proposals": rpn_out, "image_sizes": tuple(image_hw)}
 
     def apply_rpn_roi(self, fpn_feats, image_hw, targets=None, train: bool = False,
-                      draws=None, generator=None, rng=None, sample: bool | None = None):
+                      draws=None, generator=None, rng=None, sample: bool | None = None, rows=None):
         """``propose`` then ``apply_roi`` over FPN maps: in training at the
         training proposal counts. ``sample`` (default: ``train``) assigns
         targets and samples RoIs, also on an eval forward."""
         rpn_out = self.propose(fpn_feats, image_hw, train)
         return self.apply_roi(fpn_feats, rpn_out, image_hw, targets, train if sample is None else sample,
-                              draws, generator, rng)
+                              draws, generator, rng, rows)
 
     def forward(self, images, image_hw, targets=None, train: bool = False, draws=None,
-                generator=None, rng=None):
-        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images)), image_hw,
-                                  targets, train, draws, generator, rng)
+                generator=None, rng=None, rows=None):
+        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images, train)), image_hw,
+                                  targets, train, draws, generator, rng, rows=rows)
 
 
 def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None,

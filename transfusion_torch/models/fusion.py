@@ -169,7 +169,9 @@ class EncoderLayer(nn.Module):
         rate = self.dropout_rate if self.training else 0.0
         if attn_mask is None and self.use_flash and l >= FLASH_MIN_LEN:
             seed = need_rng(rng).attention_seed() if rate > 0.0 else 0
-            ctx = flash_attention_train(q, k, v, key_padding_mask, rate, seed).reshape(b, l, d)
+            offset = rng.batch_offset if rate > 0.0 else 0
+            ctx = flash_attention_train(q, k, v, key_padding_mask, rate, seed,
+                                        offset).reshape(b, l, d)
         else:
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(hd ** 0.5, dtype=dt)
             if key_padding_mask is not None:

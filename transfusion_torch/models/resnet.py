@@ -1,5 +1,5 @@
-"""ResNet-50 body with detectron2 strides and frozen BatchNorm (port of
-``transfusion_tpu/models/resnet.py``, plain 7x7 stem only).
+"""ResNet-50 body with detectron2 strides and frozen or trainable BatchNorm
+(port of ``transfusion_tpu/models/resnet.py``, plain 7x7 stem only).
 
 Module and buffer names follow torchvision's ``resnet_fpn_backbone`` body
 (``conv1``/``bn1``/``layerN.i.convK``/``bnK``/``downsample.{0,1}``) so the
@@ -20,6 +20,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from transfusion_torch.ops.batch_norm import BatchNorm
 
 RESNET50_CHANNELS = {"0": 256, "1": 512, "2": 1024, "3": 2048}
 
@@ -43,7 +45,7 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(c))
         self.eps = eps
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         mul = self.weight / torch.sqrt(self.running_var + self.eps)
         add = self.bias - self.running_mean * mul
         return x * mul.to(x.dtype)[None, :, None, None] + add.to(x.dtype)[None, :, None, None]
@@ -52,28 +54,29 @@ class FrozenBatchNorm2d(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) with a projection shortcut on the first block."""
 
-    def __init__(self, cin: int, mid: int, stride: int, stride_in_1x1: bool, project: bool, dtype):
+    def __init__(self, cin: int, mid: int, stride: int, stride_in_1x1: bool, project: bool, dtype,
+                 norm=FrozenBatchNorm2d):
         super().__init__()
         s1, s2 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = nn.Conv2d(cin, mid, 1, stride=s1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(mid)
+        self.bn1 = norm(mid)
         self.conv2 = nn.Conv2d(mid, mid, 3, stride=s2, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm2d(mid)
+        self.bn2 = norm(mid)
         self.conv3 = nn.Conv2d(mid, mid * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(mid * 4)
+        self.bn3 = norm(mid * 4)
         self.downsample = (
-            nn.Sequential(nn.Conv2d(cin, mid * 4, 1, stride=stride, bias=False),
-                          FrozenBatchNorm2d(mid * 4))
+            nn.Sequential(nn.Conv2d(cin, mid * 4, 1, stride=stride, bias=False), norm(mid * 4))
             if project else None
         )
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         dt = self.dtype
-        h = F.relu(self.bn1(conv(x, self.conv1, dt)))
-        h = F.relu(self.bn2(conv(h, self.conv2, dt)))
-        h = self.bn3(conv(h, self.conv3, dt))
-        sc = x if self.downsample is None else self.downsample[1](conv(x, self.downsample[0], dt))
+        h = F.relu(self.bn1(conv(x, self.conv1, dt), train))
+        h = F.relu(self.bn2(conv(h, self.conv2, dt), train))
+        h = self.bn3(conv(h, self.conv3, dt), train)
+        sc = (x if self.downsample is None
+              else self.downsample[1](conv(x, self.downsample[0], dt), train))
         return F.relu(h + sc)
 
 
@@ -81,11 +84,12 @@ class ResNet(nn.Module):
     """forward(x NCHW) -> {"0": C2, "1": C3, "2": C4, "3": C5} (strides 4..32)."""
 
     def __init__(self, stage_sizes=(3, 4, 6, 3), stride_in_1x1: bool = True, dtype=torch.float32,
-                 stop_grad_prefix: int = 0):
+                 stop_grad_prefix: int = 0, trainable_bn: bool = False, bn_momentum: float = 0.1):
         super().__init__()
         self.dtype, self.stop_grad_prefix = dtype, stop_grad_prefix
+        norm = (lambda c: BatchNorm(c, bn_momentum)) if trainable_bn else FrozenBatchNorm2d
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = FrozenBatchNorm2d(64)
+        self.bn1 = norm(64)
         cin, mid = 64, 64
         self.stage_names = []
         for stage, blocks in enumerate(stage_sizes):
@@ -93,7 +97,7 @@ class ResNet(nn.Module):
             layer = []
             for b in range(blocks):
                 layer.append(Bottleneck(cin, mid, stride if b == 0 else 1, stride_in_1x1,
-                                        project=(b == 0), dtype=dtype))
+                                        project=(b == 0), dtype=dtype, norm=norm))
                 cin = mid * 4
             name = f"layer{stage + 1}"
             self.add_module(name, nn.Sequential(*layer))
@@ -104,13 +108,22 @@ class ResNet(nn.Module):
         """No autograd for unit ``unit`` (0 = stem) when the cut is past it."""
         return torch.no_grad() if unit < self.stop_grad_prefix else contextlib.nullcontext()
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         with self._tape(0):
-            h = F.relu(self.bn1(conv(x, self.conv1, self.dtype)))
+            h = F.relu(self.bn1(conv(x, self.conv1, self.dtype), train))
             h = F.max_pool2d(h, 3, stride=2, padding=1)
         feats = {}
         for i, name in enumerate(self.stage_names):
             with self._tape(i + 1):
-                h = getattr(self, name)(h)
+                for block in getattr(self, name):
+                    h = block(h, train)
             feats[str(i)] = h
         return feats
+
+
+def batch_stats(model: nn.Module) -> dict | None:
+    """{name: buffer} of the trainable BatchNorms' running averages (the
+    live tensors, not copies), None where the model has none."""
+    out = {f"{name}.{b}": getattr(mod, b) for name, mod in model.named_modules()
+           if isinstance(mod, BatchNorm) for b in ("running_mean", "running_var")}
+    return out or None

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -61,12 +62,24 @@ class DropoutRNG:
     """The dropout randomness of one train step, a function of (seed, step)
     alone, so that the step replays: keep masks from a generator on the
     model's device, and kernel K2's int32 seeds from a CPU generator (drawn
-    without a device synchronisation)."""
+    without a device synchronisation).
 
-    def __init__(self, device, seed: int, step: int):
+    ``rows`` (start, stop, total) places the step's batch in a
+    data-parallel global batch of ``total`` images: a keep mask is then
+    drawn for the global tensor and this rank keeps its rows, and the
+    attention kernels hash the global image index (``batch_offset``), so
+    each image gets the draws of the one-rank run. The masked tensors'
+    leading dimension runs over the images first (image-major)."""
+
+    def __init__(self, device, seed: int, step: int, rows=None):
         base = seed * 1_000_003 + step
         self.masks = torch.Generator(device=device).manual_seed(base + _MASK_STREAM)
         self.seeds = torch.Generator().manual_seed(base + _SEED_STREAM)
+        self.rows = None if rows is None or rows[1] - rows[0] == rows[2] else tuple(rows)
+
+    @property
+    def batch_offset(self) -> int:
+        return 0 if self.rows is None else self.rows[0]
 
     def attention_seed(self) -> int:
         return int(torch.randint(-2 ** 31, 2 ** 31, (), generator=self.seeds))
@@ -78,17 +91,41 @@ class DropoutRNG:
         device's default generator for the one draw and back out after it:
         the draw advances the mask generator, and the default generator ends
         as it began. (A mask drawn apart and applied by torch.where cost the
-        flagship train step about 8 ms of device time on the card.)"""
+        flagship train step about 8 ms of device time on the card.) Under
+        ``rows`` the mask is drawn apart for the global tensor in x's dtype,
+        as PyTorch draws it for that shape: on CUDA the fused kernel's keep
+        mask of a tensor of ones (its random stream depends on the dtype's
+        vector width), applied as the kernel applies it (x times the f32
+        scale 1 / (1 - rate), rounded once); on the CPU the Bernoulli noise
+        of ``F.dropout``."""
         default = (torch.cuda.default_generators[x.device.index if x.device.index is not None
                                                  else torch.cuda.current_device()]
                    if x.device.type == "cuda" else torch.default_generator)
         before = default.get_state()
         default.set_state(self.masks.get_state())
         try:
-            return F.dropout(x, rate, True)
+            if self.rows is None:
+                return F.dropout(x, rate, True)
+            return self._keep_rows(x, rate)
         finally:
             self.masks.set_state(default.get_state())
             default.set_state(before)
+
+    def _keep_rows(self, x, rate: float):
+        start, stop, total = self.rows
+        per, rem = divmod(x.shape[0], stop - start)
+        if rem:
+            raise ValueError(f"a dropout input of {x.shape[0]} rows is not image-major over "
+                             f"{stop - start} images")
+        shape = (total * per, *x.shape[1:])
+        cut = slice(start * per, stop * per)
+        if x.device.type == "cuda":
+            keep = torch.native_dropout(torch.ones(shape, dtype=x.dtype, device=x.device), rate,
+                                        True)[1]
+            scale = float(np.float32(1.0 / float(np.float32(1.0 - rate))))
+            return (x.float() * (keep[cut] * scale)).to(x.dtype)
+        noise = torch.empty(shape, dtype=x.dtype).bernoulli_(1 - rate).div_(1 - rate)
+        return x * noise[cut]
 
 
 def need_rng(rng):

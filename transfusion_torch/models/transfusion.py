@@ -175,8 +175,9 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     does, with its ValueErrors: every fusion family and option, the LM head,
     the sbert / GPT-2 / T5 / identity language towers (or none), and the
     linear or transformer TTC head. The port builds a ResNet-50 family trunk
-    with frozen BN and the plain stem; another backbone, live BN or the s2d
-    stem raises NotImplementedError naming the option. Flash attention is on
+    with frozen or trainable BN (``model.batch_norm.use`` / ``.momentum``)
+    and the plain stem; another backbone or the s2d stem raises
+    NotImplementedError naming the option. Flash attention is on
     unless the fusion args turn it off, as in JAX."""
     run, model = config["run"], config["model"]
     rcnn_kwargs = model.get("rcnn_kwargs", {})
@@ -188,7 +189,6 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     bn = model.get("batch_norm") or {}
     unported = [
         ("model.type", model.get("type", "res50"), "res50"),
-        ("model.batch_norm.use", bool(bn.get("use", False)), False),
         ("model.s2d_stem", bool(model.get("s2d_stem", False)), False),
     ]
     for option, value, supported in unported:
@@ -260,6 +260,8 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
         rpn=RPNConfig(score_thresh=rcnn_kwargs.get("rpn_score_thresh", 0.0)),
         stride_in_1x1=model.get("adapt_to_detectron", False),
         stage_sizes=tuple(model.get("stage_sizes", (3, 4, 6, 3))),
+        trainable_bn=bool(bn.get("use", False)),
+        bn_momentum=bn.get("momentum", 0.1),
         dtype=dtype,
     )
     fus = FusionConfig(
@@ -432,15 +434,16 @@ class TransFusion(FasterRCNN):
             mask = torch.ones((lang.shape[0], 1), dtype=mask.dtype, device=dev)
         return lang, mask
 
-    def _trunk(self, batch: dict, rng=None):
+    def _trunk(self, batch: dict, rng=None, train: bool = False):
         """Backbone -> per-level language fusion -> FPN. Each level sees the
         language the previous one forwards (``forward_language_f``: its
         fused tokens "direct", or their "sum" with what it was given; the
         encoder's tokens otherwise) and its fused map replaces the backbone
         map (``replace_fpn_features``). Returns (FPN maps, the language
-        context of the LM head)."""
+        context of the LM head). ``train`` selects the trunk's batch
+        statistics under trainable BN."""
         c, f = self.tcfg, self.tcfg.fusion
-        feats = self.forward_features(batch["image"])
+        feats = self.forward_features(batch["image"], train)
         if not c.use_language:
             return self.apply_fpn(feats), None
         dev = self.device
@@ -486,14 +489,15 @@ class TransFusion(FasterRCNN):
             return _mean_lm_outs([self.lm_layer(t, mask) for t in ctx["mscale_lang"]])
         return self.lm_layer(ctx["lang_out"], mask)
 
-    def forward(self, batch: dict, train: bool = False, draws=None, generator=None, rng=None):
+    def forward(self, batch: dict, train: bool = False, draws=None, generator=None, rng=None,
+                rows=None):
         """Returns {"roi_outputs", "proposals", "image_sizes"[, "lm"]} (see
-        ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws``, ``generator``
-        and ``rng``)."""
+        ``FasterRCNN.apply_rpn_roi`` for ``train``, ``draws``, ``generator``,
+        ``rng`` and ``rows``)."""
         c = self.tcfg
-        fpn_feats, ctx = self._trunk(batch, rng)
+        fpn_feats, ctx = self._trunk(batch, rng, train)
         out = self.apply_rpn_roi(fpn_feats, batch["image_hw"], batch.get("targets"), train, draws,
-                                 generator, rng)
+                                 generator, rng, rows=rows)
         if c.use_language and c.lm_on:
             out["lm"] = self._lm_outputs(ctx)
         if c.ttc_hand is not None and train and "hand_boxes" in batch:
@@ -539,18 +543,19 @@ class TransFusion(FasterRCNN):
         head = torch.where(dets["valid"][:, :k], ttc.to(old.dtype), old[:, :k])
         return dict(dets, ttcs=torch.cat([head, old[:, k:]], 1))
 
-    def eval_with_losses(self, batch: dict, draws=None, generator=None):
+    def eval_with_losses(self, batch: dict, draws=None, generator=None, rows=None):
         """One eval forward giving {"eval": every proposal's RoI outputs, for
         the detections; "loss": the same trunk's RPN labels and sampled RoIs
-        (``draws`` / ``generator`` as in ``apply_roi``), for the
+        (``draws`` / ``generator`` / ``rows`` as in ``apply_roi``), for the
         validation losses}, each with the LM logits where the head is on.
         Both branches take one set of eval proposals. Dropout stays off
-        (eval mode)."""
+        (eval mode) and trainable BN uses its running averages."""
         fpn_feats, ctx = self._trunk(batch)
         hw = batch["image_hw"]
         rpn_out = self.propose(fpn_feats, hw)
         out = {"eval": self.apply_roi(fpn_feats, rpn_out, hw),
-               "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator)}
+               "loss": self.apply_roi(fpn_feats, rpn_out, hw, batch["targets"], True, draws, generator,
+                                      rows=rows)}
         if self.tcfg.use_language and self.tcfg.lm_on:
             lm = self._lm_outputs(ctx)
             out["eval"]["lm"] = out["loss"]["lm"] = lm

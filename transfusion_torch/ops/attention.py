@@ -8,7 +8,8 @@ Port of ``transfusion_tpu/ops/attention.py::flash_attention_train`` (Pallas
 bias on padded keys and an f32 scale, products in the input dtype with f32
 accumulation; under dropout each probability is kept by a murmur3 hash of
 its global (query, key) indices, the cell ``b * H + h`` and the seed, and
-scaled by ``1 / (1 - rate)``; the probabilities are rounded to the input
+scaled by ``1 / (1 - rate)`` (``b`` is the image's index in the global
+batch: a data-parallel rank passes its first image's as ``batch_offset``); the probabilities are rounded to the input
 dtype for the P.V product and the undropped row sum is divided out after
 it. The per-row f32 statistics (m, l) come back in ``[B, H, N, 2]``.
 Backward: P rebuilt from (m, l), D = rowsum(dO * O) in f32, the same keep
@@ -63,11 +64,14 @@ def _mul32(x, c: int):
     return (lo + hi) & _MASK32
 
 
-def dropout_keep_mask(bsz: int, nh: int, n: int, seed: int, rate: float, device):
-    """[B, H, N, N] bool keep mask (query rows, key columns): the plain
-    statement of the hash both the TPU kernel and the CUDA kernels use."""
+def dropout_keep_mask(bsz: int, nh: int, n: int, seed: int, rate: float, device,
+                      batch_offset: int = 0):
+    """[B, H, N, N] bool keep mask (query rows, key columns) of images
+    ``batch_offset`` up to ``batch_offset + B``: the plain statement of the
+    hash both the TPU kernel and the CUDA kernels use."""
     r = torch.arange(n, dtype=torch.int64, device=device)
-    cell = torch.arange(bsz * nh, dtype=torch.int64, device=device).reshape(bsz, nh, 1, 1)
+    cell = torch.arange(batch_offset * nh, (batch_offset + bsz) * nh, dtype=torch.int64,
+                        device=device).reshape(bsz, nh, 1, 1)
     base = (seed & _MASK32) + _mul32(cell, 0xC2B2AE35)
     x = (_mul32(r, 0x9E3779B9)[:, None] + _mul32(r, 0x85EBCA6B)[None, :] + base) & _MASK32
     x = x ^ (x >> 16)
@@ -84,7 +88,8 @@ def _scores(q, k, bias):
     return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale + bias[:, None, None, :]
 
 
-def attention_plain(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, seed: int = 0):
+def attention_plain(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, seed: int = 0,
+                    batch_offset: int = 0):
     """Plain PyTorch statement of K2: returns (out, stats)."""
     b, n, h, d = q.shape
     s = _scores(q, k, key_bias(key_padding_mask, b, n, q.device))
@@ -92,7 +97,7 @@ def attention_plain(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, s
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device)
+        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device, batch_offset)
         p = torch.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     out = (o / l.permute(0, 2, 1, 3)).to(q.dtype)
@@ -100,7 +105,7 @@ def attention_plain(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, s
 
 
 def attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask=None,
-                        dropout_rate: float = 0.0, seed: int = 0):
+                        dropout_rate: float = 0.0, seed: int = 0, batch_offset: int = 0):
     """Plain PyTorch statement of K3 and K4: returns (dq, dk, dv)."""
     b, n, h, d = q.shape
     dt = q.dtype
@@ -111,7 +116,7 @@ def attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask=None,
     d_row = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)[..., None]   # [B, H, N, 1]
     pt, dp = p, dpt
     if dropout_rate > 0.0:
-        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device)
+        keep = dropout_keep_mask(b, h, n, seed, dropout_rate, q.device, batch_offset)
         inv = 1.0 / (1.0 - dropout_rate)
         pt = torch.where(keep, p, 0.0) * inv
         dp = torch.where(keep, dpt, 0.0) * inv
@@ -135,13 +140,18 @@ def _check_inputs(name, tensors, d):
                     f"{name}: bf16 head dim must be one of {BF16_HEAD_DIMS}")
 
 
-def _dropout_args(rate: float, seed: int):
+def _dropout_args(rate: float, seed: int, batch_offset: int = 0, nh: int = 1):
+    """The kernels' dropout arguments. The hash adds ``cell * 0xC2B2AE35``
+    to the seed, linearly in the cell, so a batch offset of b0 images is
+    the seed plus ``b0 * H * 0xC2B2AE35`` (mod 2^32): the kernels see the
+    global cells with no argument of their own."""
     if rate <= 0.0:
         return 0, 0, 1.0, 0
-    return seed & _MASK32, keep_threshold(rate), 1.0 / (1.0 - rate), 1
+    folded = (seed + batch_offset * nh * 0xC2B2AE35) & _MASK32
+    return folded, keep_threshold(rate), 1.0 / (1.0 - rate), 1
 
 
-def _attention_cuda(q, k, v, key_padding_mask, rate, seed):
+def _attention_cuda(q, k, v, key_padding_mask, rate, seed, batch_offset=0):
     b, n, h, d = q.shape
     _check_inputs("attention", (q, k, v), d)
     bias = key_bias(key_padding_mask, b, n, q.device).contiguous()
@@ -150,7 +160,7 @@ def _attention_cuda(q, k, v, key_padding_mask, rate, seed):
     code = kernels.library().tf_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
         stats.data_ptr(), b, n, h, d, float(1.0 / (d ** 0.5)),
-        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed),
+        int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed, batch_offset, h),
         kernels.stream_handle(q.device),
     )
     kernels.check(code, "tf_attention_fwd")
@@ -158,7 +168,7 @@ def _attention_cuda(q, k, v, key_padding_mask, rate, seed):
     return out, stats
 
 
-def _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, rate, seed):
+def _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, rate, seed, batch_offset=0):
     b, n, h, d = q.shape
     _check_inputs("attention backward", (q, k, v, out, dout), d)
     kernels.require(stats.shape == (b, h, n, 2) and stats.dtype == torch.float32
@@ -168,7 +178,7 @@ def _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, rate, seed)
     d_rows = torch.empty((b, h, n), dtype=torch.float32, device=q.device)  # D, K3 -> K4
     lib, stream = kernels.library(), kernels.stream_handle(q.device)
     common = (b, n, h, d, float(1.0 / (d ** 0.5)), int(q.dtype == torch.bfloat16),
-              *_dropout_args(rate, seed), stream)
+              *_dropout_args(rate, seed, batch_offset, h), stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
            bias.data_ptr(), stats.data_ptr(), d_rows.data_ptr())
     kernels.check(lib.tf_attention_bwd_dq(*ins, dq.data_ptr(), *common), "tf_attention_bwd_dq")
@@ -185,52 +195,59 @@ def _check_rate(rate: float):
 
 
 def attention_fwd(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0, seed: int = 0,
-                  return_stats: bool = False):
+                  return_stats: bool = False, batch_offset: int = 0):
     """q/k/v [B, N, H, D]; key_padding_mask [B, N] bool, True = ignore; seed
-    an int32 (ignored at rate 0). Returns [B, N, H, D] (and the
+    an int32 (ignored at rate 0); ``batch_offset`` the global index of the
+    first image (the dropout hash's). Returns [B, N, H, D] (and the
     [B, H, N, 2] f32 (m, l) statistics). Not differentiable: see
     :func:`flash_attention_train`."""
     _check_rate(dropout_rate)
     if q.device.type == "cpu":
-        out, stats = attention_plain(q, k, v, key_padding_mask, dropout_rate, seed)
+        out, stats = attention_plain(q, k, v, key_padding_mask, dropout_rate, seed, batch_offset)
     else:
-        out, stats = _attention_cuda(q, k, v, key_padding_mask, dropout_rate, seed)
+        out, stats = _attention_cuda(q, k, v, key_padding_mask, dropout_rate, seed, batch_offset)
     return (out, stats) if return_stats else out
 
 
 def attention_bwd(q, k, v, out, stats, dout, key_padding_mask=None, dropout_rate: float = 0.0,
-                  seed: int = 0):
+                  seed: int = 0, batch_offset: int = 0):
     """Gradients (dq, dk, dv) of :func:`attention_fwd`'s output, given its
     output, statistics and the output's gradient ``dout``."""
     _check_rate(dropout_rate)
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed)
-    return _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed)
+        return attention_bwd_plain(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed,
+                                   batch_offset)
+    return _attention_bwd_cuda(q, k, v, out, stats, dout, key_padding_mask, dropout_rate, seed,
+                               batch_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, seed):
-        out, stats = attention_fwd(q, k, v, key_padding_mask, dropout_rate, seed, return_stats=True)
+    def forward(ctx, q, k, v, key_padding_mask, dropout_rate, seed, batch_offset):
+        out, stats = attention_fwd(q, k, v, key_padding_mask, dropout_rate, seed, return_stats=True,
+                                   batch_offset=batch_offset)
         ctx.save_for_backward(q, k, v, out, stats)
         ctx.key_padding_mask, ctx.rate, ctx.seed = key_padding_mask, dropout_rate, seed
+        ctx.batch_offset = batch_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, stats = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, stats, dout.contiguous(), ctx.key_padding_mask,
-                                   ctx.rate, ctx.seed)
-        return dq, dk, dv, None, None, None
+                                   ctx.rate, ctx.seed, ctx.batch_offset)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_train(q, k, v, key_padding_mask=None, dropout_rate: float = 0.0,
-                          seed: int = 0):
+                          seed: int = 0, batch_offset: int = 0):
     """Differentiable fused attention with probability dropout (the TPU
     package's ``flash_attention_train``): q/k/v [B, N, H, D] contiguous,
     key_padding_mask [B, N] bool (True = ignore), seed an int32 varying per
-    step and layer. Returns [B, N, H, D]."""
-    return _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_rate), int(seed))
+    step and layer, ``batch_offset`` the global index of the first image.
+    Returns [B, N, H, D]."""
+    return _FlashAttention.apply(q, k, v, key_padding_mask, float(dropout_rate), int(seed),
+                                 int(batch_offset))
 
 
 # ------------------------------------------------ K7: exact self-attention

@@ -39,12 +39,18 @@ def match_proposals(iou, gt_valid, high_thresh: float, low_thresh: float,
     return out
 
 
-def uniform_draws(shape, generator: torch.Generator | None = None, device=None):
+def uniform_draws(shape, generator: torch.Generator | None = None, device=None, rows=None):
     """(positive keys, negative keys), each uniform [0, 1) of ``shape``, from
-    ``generator`` (on its device) or torch's default generator."""
+    ``generator`` (on its device) or torch's default generator. ``rows``
+    (start, stop, total): the draws of a global batch of ``total`` rows,
+    cut to rows start:stop (a rank's slice in data parallelism)."""
     if generator is not None:
         device = generator.device
-    return tuple(torch.rand(shape, generator=generator, device=device) for _ in range(2))
+    if rows is None:
+        return tuple(torch.rand(shape, generator=generator, device=device) for _ in range(2))
+    full = (rows[2], *tuple(shape)[1:])
+    return tuple(torch.rand(full, generator=generator, device=device)[rows[0]:rows[1]]
+                 for _ in range(2))
 
 
 def _sample_parts(labels, valid, draws, batch_size: int, positive_fraction: float):

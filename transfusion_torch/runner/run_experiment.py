@@ -4,14 +4,21 @@
     python -m transfusion_torch.runner.run_experiment \
         --config $CODE/runner/nao/configs/ego_nao_res50_ego4dv2.yml \
         [--debug] [--run-val] [--run-test] [--resume-from PATH] [--epochs N] \
-        [--run-dir DIR] [--device cuda|cpu]
+        [--run-dir DIR] [--device cuda|cpu] [--devices N] [--distributed] \
+        [--mesh-fsdp]
 
 The reference YAMLs run unmodified (``${CODE}``/``${DATA}``/``${RUNS}``
 interpolation included); the JSONL history and the challenge JSONs in the
 run directory are the record. It runs on one device, ``cuda`` unless
-``--device`` names another. The multi-device flags (``--devices``,
-``--mesh-model``, ``--mesh-fsdp``, ``--distributed``) and the wandb ones are
-accepted as in the JAX CLI and raise NotImplementedError when set.
+``--device`` names another, or data-parallel on several: ``--devices N``
+starts N local ranks itself (one a card, or N gloo processes under
+``--device cpu``), ``--distributed`` (or ``TRANSFUSION_DISTRIBUTED=1``)
+joins the process group torchrun describes in the environment
+(``torchrun --nproc-per-node N -m transfusion_torch.runner.run_experiment
+--distributed ...``). ``--mesh-fsdp`` shards the large parameters'
+optimizer state over the ranks. ``--mesh-model`` above 1 (tensor
+parallelism) and the wandb flags are accepted as in the JAX CLI and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import argparse
 import json
 import logging
 import os
+import sys
 import time
 
 
@@ -35,20 +43,22 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--run-dir", type=str, default=None,
                    help="output directory (default: $RUNS/<experiment>/<timestamp>)")
     p.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="data-parallel over N local ranks (one a card; gloo processes on cpu)")
+    p.add_argument("--mesh-fsdp", action="store_true", default=False,
+                   help="fully-sharded data parallelism over the ranks")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="join the process group torchrun describes (TRANSFUSION_DISTRIBUTED=1)")
+    p.add_argument("--mesh-model", type=int, default=1, help="tensor parallelism: not ported")
     # Not ported yet: each raises NotImplementedError when set.
-    p.add_argument("--devices", type=int, default=None)
     p.add_argument("--skip-ssl-verification", action="store_true", default=False)
-    p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--mesh-fsdp", action="store_true", default=False)
     p.add_argument("--do-not-log-checkpoints", action="store_true", default=False)
-    p.add_argument("--distributed", action="store_true", default=False)
     p.add_argument("--wandb-entity", default=None)
     p.add_argument("--wandb-project", default=None)
     return p
 
 
-_UNPORTED = (("devices", None), ("skip_ssl_verification", False), ("mesh_model", 1),
-             ("mesh_fsdp", False), ("do_not_log_checkpoints", False), ("distributed", False),
+_UNPORTED = (("skip_ssl_verification", False), ("do_not_log_checkpoints", False),
              ("wandb_entity", None), ("wandb_project", None))
 
 
@@ -62,17 +72,63 @@ def make_run_dir(experiment: str, override: str | None) -> str:
     return run_dir
 
 
+def _rank_main(rank: int, argv, world: int, port: int, device_type: str):
+    """One rank of ``--devices N``: join the group, then run the CLI."""
+    from transfusion_torch.parallel import mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    if device_type == "cpu":
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # ranks share the host
+    mesh.init_process_group(rank, world, f"tcp://localhost:{port}", device_type=device_type)
+    try:
+        _run(get_parser().parse_args(argv))
+    finally:
+        mesh.destroy_process_group()
+
+
 def main(argv=None):
+    from transfusion_torch.parallel import mesh
+
     args = get_parser().parse_args(argv)
     for name, default in _UNPORTED:
         if getattr(args, name) != default:
             raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet")
+    if args.mesh_model > 1:
+        raise mesh.tensor_parallel_refusal(f"--mesh-model {args.mesh_model}")
     if args.resume_from and not os.path.isdir(args.resume_from):
         raise NotImplementedError(f"--resume-from {args.resume_from!r}: only a checkpoint "
                                   "directory is ported (not a wandb run reference)")
+    if mesh.distributed_requested(args.distributed):
+        mesh.init_process_group(device_type=args.device.split(":")[0])
+        try:
+            return _run(args)
+        finally:
+            mesh.destroy_process_group()
+    if args.devices and args.devices > 1:
+        import torch.multiprocessing as mp
+
+        argv = sys.argv[1:] if argv is None else list(argv)
+        mp.spawn(_rank_main, args=(argv, args.devices, mesh.free_port(), args.device.split(":")[0]),
+                 nprocs=args.devices, join=True)
+        return None
+    return _run(args)
+
+
+def _shared_run_dir(experiment: str, override: str | None) -> str:
+    """Rank 0's run directory, the same on every rank."""
+    from transfusion_torch.parallel import mesh
+
+    run_dir = make_run_dir(experiment, override) if mesh.rank() == 0 else None
+    return mesh.allgather_pyobj(run_dir)[0]
+
+
+def _run(args):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     from transfusion_torch.config import derive_config, load_config
+    from transfusion_torch.parallel.mesh import make_mesh, rank
     from transfusion_torch.runner.trainer import EgoNaoTrainer
 
     config = load_config(args.config)
@@ -84,16 +140,20 @@ def main(argv=None):
     if args.run_val:
         config["run"]["run_val"] = True
 
-    run_dir = make_run_dir(config["experiment"], args.run_dir)
-    with open(os.path.join(run_dir, "config.json"), "w") as fp:
-        json.dump(dict(config), fp, default=str, indent=1)
-    # ${run_dir}/run.log mirrors everything the root logger emits.
-    fh = logging.FileHandler(os.path.join(run_dir, "run.log"))
+    run_dir = _shared_run_dir(config["experiment"], args.run_dir)
+    if rank() == 0:
+        with open(os.path.join(run_dir, "config.json"), "w") as fp:
+            json.dump(dict(config), fp, default=str, indent=1)
+    # ${run_dir}/run.log mirrors everything the root logger emits (rank r > 0:
+    # run.rank<r>.log).
+    fh = logging.FileHandler(os.path.join(run_dir, "run.log" if rank() == 0
+                                          else f"run.rank{rank()}.log"))
     fh.setFormatter(logging.Formatter("%(asctime)s %(name)s %(message)s"))
     logging.getLogger().addHandler(fh)
     logging.info("run dir: %s", run_dir)
 
-    trainer = EgoNaoTrainer(config, run_dir, debug=config["debug"], device=args.device)
+    trainer = EgoNaoTrainer(config, run_dir, debug=config["debug"], device=args.device,
+                            mesh=make_mesh(), fsdp=args.mesh_fsdp)
     resume = args.resume_from or None
     try:
         if config["run"].get("run_test") or config["run"].get("run_val"):
@@ -101,10 +161,12 @@ def main(argv=None):
             test = bool(config["run"].get("run_test"))
             result = trainer.evaluate(0, dataset=trainer.test_ds if test else None,
                                       source="test" if test else "val")
-            print(json.dumps(result.metrics, indent=1))
+            if rank() == 0:
+                print(json.dumps(result.metrics, indent=1))
         else:
             history = trainer.fit(epochs=args.epochs, resume_from=resume)
-            print(json.dumps(history[-1] if history else {}, indent=1))
+            if rank() == 0:
+                print(json.dumps(history[-1] if history else {}, indent=1))
     finally:
         logging.getLogger().removeHandler(fh)
         fh.close()

@@ -15,7 +15,17 @@ T5 block ``block_i`` at ``...encoder.block.i.``; the RoI heads (``box_head``/``p
 ``roi_heads.*``. JAX holds the frozen BatchNorm vectors as parameters, the
 port as buffers: with these multipliers a frozen backbone moves in neither.
 
-The trainer runs on one device (``cuda`` unless ``device`` names another).
+The trainer runs on one device a rank (``cuda`` unless ``device`` names
+another; ``cuda:LOCAL_RANK`` under a process group). With R ranks
+(``mesh``, the data axis) ``run.train_bs`` and ``run.val_bs`` are global
+batch sizes rounded up to a multiple of R, each rank's loader yields its
+slice of the one-rank run's global batches, and the train step reduces
+over the ranks (``train/step.py``); ``fsdp`` (or ``run.fsdp``) shards the
+large parameters' optimizer state and update (``parallel/fsdp.py``).
+``evaluate`` gathers every rank's detections before the metric; rank 0
+alone writes the export, ``history.jsonl``, ``best.json`` and the
+checkpoints, which hold the whole state. Tensor parallelism (a model axis,
+``tp_min_dim``) is not ported and raises.
 Only :func:`build_trainer_data` reads files, and only it needs pandas,
 Pillow, OpenCV or PyYAML (through the data modules it calls); a caller may
 hand the trainer a :class:`TrainerData` instead.
@@ -40,7 +50,12 @@ from transfusion_torch.data.tokenizer import (GPT2BPETokenizer, SentencePieceTok
 from transfusion_torch.data.transforms import AugConfig
 from transfusion_torch.device import resolve_device
 from transfusion_torch.metrics import STAMeanAveragePrecision
+from transfusion_torch.models.resnet import batch_stats
 from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
+from transfusion_torch.parallel.fsdp import Sharding
+from transfusion_torch.parallel.mesh import (allgather_pyobj, make_mesh, rank,
+                                             round_to_data_axis, tensor_parallel_refusal,
+                                             world_size)
 from transfusion_torch.runner.export import detections_to_results, write_result_json
 from transfusion_torch.train.checkpoint import (CheckpointManager, map_tensors,
                                                 monitor_metric_name, replace_heads, tolerant_merge)
@@ -317,21 +332,27 @@ class EvalResult:
 
 
 class EgoNaoTrainer:
-    """Trains and evaluates one run config on one device. ``data`` (a
+    """Trains and evaluates one run config on one device a rank. ``data`` (a
     :class:`TrainerData`) replaces :func:`build_trainer_data`'s reading of
-    the dataset files. The multi-device arguments (``mesh``, ``fsdp``,
-    ``tp_min_dim``) are not ported yet and raise when set."""
+    the dataset files. ``mesh`` (default: every rank of the process group
+    on the data axis) must have a model axis of 1; ``fsdp`` or ``run.fsdp``
+    turns on fully-sharded data parallelism; ``tp_min_dim`` (tensor
+    parallelism) raises."""
 
     def __init__(self, config: dict, run_dir: str, debug: bool = False, mesh=None, seed=None,
                  fsdp: bool = False, tp_min_dim: int | None = None, device=None,
                  data: TrainerData | None = None):
         self.config = config
         self.run = config["run"]
-        for option, value, default in (("mesh", mesh, None), ("fsdp", fsdp, False),
-                                       ("run.fsdp", self.run.get("fsdp", False), False),
-                                       ("tp_min_dim", tp_min_dim, None)):
-            if value != default:
-                raise NotImplementedError(f"{option}={value!r} (multi-device) is not ported yet")
+        if tp_min_dim is not None:
+            raise tensor_parallel_refusal(f"tp_min_dim={tp_min_dim!r}")
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise tensor_parallel_refusal(f"mesh with a model axis of {mesh.shape['model']}")
+        self.mesh = mesh if mesh is not None else make_mesh(model=1)
+        if self.mesh.shape["data"] != world_size():
+            raise ValueError(f"mesh data axis {self.mesh.shape['data']} != {world_size()} ranks "
+                             "(one rank a device)")
+        self.fsdp = bool(fsdp or self.run.get("fsdp", False))
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self.debug = debug
@@ -372,10 +393,13 @@ class EgoNaoTrainer:
         self.model_cfg = build_transfusion_config(self.config, self.num_nouns, self.num_verbs,
                                                   dtype=dtype)
         self.model = TransFusion(self.model_cfg, device=self.device)
-        self.train_bs = max(self.run["train_bs"], 1)
-        self.val_bs = max(self.run["val_bs"], 1)
+        # Global batch sizes, rounded up to a multiple of the data axis.
+        data = self.mesh.shape["data"]
+        self.train_bs = round_to_data_axis(self.run["train_bs"], data)
+        self.val_bs = round_to_data_axis(self.run["val_bs"], data)
         if self.debug:
-            self.train_bs, self.val_bs = min(self.train_bs, 10), min(self.val_bs, 10)
+            self.train_bs = round_to_data_axis(min(self.train_bs, 10), data)
+            self.val_bs = round_to_data_axis(min(self.val_bs, 10), data)
 
         steps_per_epoch = max(len(self.train_ds) // self.train_bs, 1)
         self.tx, self.lr_schedule = make_optimizer(
@@ -403,8 +427,9 @@ class EgoNaoTrainer:
         self.criterion = criterion
 
     def _build_steps(self):
+        self.sharding = Sharding(self.model, self.fsdp)
         self.train_step = make_train_step(self.model, self.tx, self.loss_cfg, self.noun_w,
-                                          self.verb_w)
+                                          self.verb_w, self.sharding)
         # Detections and real validation losses from one trunk (the
         # reference logs its normalised-weight val loss over constant zeros,
         # ego_nao_trainer.py:407-427).
@@ -422,8 +447,8 @@ class EgoNaoTrainer:
         if self.state is not None:
             return
         init_random_(self.model, seed=self.seed)
-        self.state = TrainState(step=0, opt_state=self.tx.init(dict(self.model.named_parameters())),
-                                seed=self.seed)
+        self.state = TrainState(step=0, opt_state=self.tx.init(self.sharding.views()),
+                                seed=self.seed, batch_stats=batch_stats(self.model))
         if not resume_from:
             pretrained = (self.config.get("model") or {}).get("pretrained")
             if isinstance(pretrained, str) and pretrained:
@@ -432,13 +457,14 @@ class EgoNaoTrainer:
                 log.warning("model.pretrained: True requests torchvision COCO weights (a "
                             "download); provide a checkpoint path instead. Training from "
                             "random init.")
-            if not pretrained:
+            if not pretrained and not self.model_cfg.detector.trainable_bn:
                 log.warning("training from RANDOM init with frozen BatchNorm: the trunk is "
                             "unnormalized and detector losses converge pathologically slowly; "
-                            "provide model.pretrained.")
+                            "set model.batch_norm.use: True or provide model.pretrained.")
             return
         fresh = {k: v.clone() for k, v in self.model.state_dict().items()}
         self.state = self.ckpt.restore(self.model, path=resume_from)
+        self.state.opt_state = self.sharding.shard_state(self.state.opt_state)
         if self.run.get("replace_heads", False) == "all":
             self.model.load_state_dict(replace_heads(self.model.state_dict(), fresh))
 
@@ -485,7 +511,8 @@ class EgoNaoTrainer:
             epoch, self.config["model"], self.run.get("freeze_backbone_at_epoch", -1)))
         self.ensure_state()
         loader = DataLoader(self.train_ds, self.train_bs, tokenizer=self.tokenizer, training=True,
-                            seed=self.seed, lang_max_length=self.tokenizer.max_length)
+                            seed=self.seed, lang_max_length=self.tokenizer.max_length,
+                            rank_slice=(rank(), world_size()))
         loader.epoch = epoch
         loss_w = criterion_weights(self.criterion, epoch)
         narr = self.run["narration_embeds"]["args"]
@@ -519,16 +546,19 @@ class EgoNaoTrainer:
                  export: bool = True) -> EvalResult:
         """Detections and validation losses over ``dataset`` (the val split by
         default): STA mAP on the original resolution, the mean of each loss
-        over batches, and the challenge JSON ``results/<source>_epoch<N>.json``."""
+        over batches, and the challenge JSON ``results/<source>_epoch<N>.json``
+        (rank 0 writes it). Each rank evaluates its slice of every global
+        batch; the (prediction, label) pairs and result entries of every
+        rank are gathered before the metric."""
         self.ensure_state()
         ds = dataset if dataset is not None else self.val_ds
         loader = DataLoader(ds, self.val_bs, tokenizer=self.tokenizer, training=False,
                             seed=self.seed, lang_max_length=self.tokenizer.max_length,
-                            drop_last=False)
+                            drop_last=False, rank_slice=(rank(), world_size()))
         metric = STAMeanAveragePrecision(top_k=5)
+        per_batch: list = []  # ((prediction, label) pairs, result entries) a batch
         loss_agg: dict = {}
         loss_batches = 0
-        results: dict = {}
         bucket = self.aug.eval_bucket()
         cap_inexact_images = 0  # pre-NMS cap exactness diagnostic (roi_heads)
         for batch in loader:
@@ -542,7 +572,9 @@ class EgoNaoTrainer:
                 loss_agg[k] = loss_agg.get(k, 0.0) + float(v)
             loss_batches += 1
             t = batch["targets"]
-            for i in range(len(batch["uids"])):
+            n_real = batch.get("n_real", len(batch["uids"]))
+            pairs = []
+            for i in range(n_real):
                 v = dets["valid"][i]
                 ry, rx = batch["orig_hw"][i][0] / bucket[0], batch["orig_hw"][i][1] / bucket[1]
                 preds = {
@@ -555,26 +587,37 @@ class EgoNaoTrainer:
                 gv = t["valid"][i]
                 sy = batch["orig_hw"][i][0] / batch["image"].shape[1]
                 sx = batch["orig_hw"][i][1] / batch["image"].shape[2]
-                metric.add(preds, {
+                pairs.append((preds, {
                     "boxes": t["boxes"][i][gv] * np.array([sx, sy, sx, sy]),
                     "nouns": t["nouns"][i][gv],
                     "verbs": t["verbs"][i][gv],
                     "ttcs": t["ttcs"][i][gv],
-                })
-            results.update(detections_to_results(dets, batch["uids"], batch["orig_hw"], bucket,
-                                                 last_noun_idx=self.num_nouns - 1))
+                }))
+            real = {k: v[:n_real] for k, v in dets.items()}
+            per_batch.append((pairs, detections_to_results(
+                real, batch["uids"][:n_real], batch["orig_hw"][:n_real], bucket,
+                last_noun_idx=self.num_nouns - 1)))
         loader.close()
         if cap_inexact_images:
             log.warning("pre-NMS candidate cap exactness precondition broke on %d image(s); "
                         "raise RoIConfig.pre_nms_candidates to make the postprocess exact",
                         cap_inexact_images)
+        # Every rank's batches, in the one-rank run's image order.
+        shards = allgather_pyobj(per_batch)
+        results: dict = {}
+        for b in range(len(per_batch)):
+            for shard in shards:
+                pairs, entries = shard[b]
+                for preds, labels in pairs:
+                    metric.add(preds, labels)
+                results.update(entries)
         metrics = {f"{name}_{source}": v
                    for name, v in zip(metric.get_short_names(), metric.evaluate())}
         for k, v in loss_agg.items():
             metrics[f"{source}_{k}"] = v / max(loss_batches, 1)
         log.info("epoch %d %s: %s", epoch, source, {k: round(v, 3) for k, v in metrics.items()})
         path = None
-        if export:
+        if export and rank() == 0:
             path = write_result_json(
                 results, os.path.join(self.run_dir, "results", f"{source}_epoch{epoch}.json"),
                 epoch=epoch)
@@ -586,7 +629,8 @@ class EgoNaoTrainer:
         """Train for ``epochs`` (run.epochs by default), validating every
         ``val_every`` epochs; a checkpoint an epoch, a line of
         ``history.jsonl`` an epoch, and ``checkpoints/best.json`` for the
-        best monitored metric. wandb logging is not ported yet."""
+        best monitored metric, written by rank 0. wandb logging is not
+        ported yet."""
         if wandb_run is not None:
             raise NotImplementedError("wandb logging is not ported yet")
         epochs = epochs if epochs is not None else self.run["epochs"]
@@ -597,14 +641,20 @@ class EgoNaoTrainer:
             record = {"epoch": epoch, **self.train_epoch(epoch)}
             if (epoch + 1) % val_every == 0:
                 record.update(self.evaluate(epoch).metrics)
-            ckpt_path = self.ckpt.save(epoch, self.model, self.state, metrics=record)
+            # Every rank gathers the sharded optimizer state; rank 0 writes.
+            whole = replace(self.state, opt_state=self.sharding.full_state(self.state.opt_state))
+            ckpt_path = self.ckpt.epoch_path(epoch)
+            if rank() == 0:
+                self.ckpt.save(epoch, self.model, whole, metrics=record)
             mval = record.get(self.monitor)
             if mval is not None and (best is None or mval > best["value"]):
                 best = {"metric": self.monitor, "value": float(mval), "epoch": epoch,
                         "path": ckpt_path}
-                with open(os.path.join(self.ckpt.dir, "best.json"), "w") as fp:
-                    json.dump(best, fp, indent=1)
+                if rank() == 0:
+                    with open(os.path.join(self.ckpt.dir, "best.json"), "w") as fp:
+                        json.dump(best, fp, indent=1)
             self.history.append(record)
-            with open(os.path.join(self.run_dir, "history.jsonl"), "a") as fp:
-                fp.write(json.dumps(record) + "\n")
+            if rank() == 0:
+                with open(os.path.join(self.run_dir, "history.jsonl"), "a") as fp:
+                    fp.write(json.dumps(record) + "\n")
         return self.history

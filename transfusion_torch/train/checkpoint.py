@@ -2,9 +2,11 @@
 ``transfusion_tpu/train/checkpoint.py`` over ``torch.save``).
 
 Each epoch's checkpoint is a directory (``epoch_path``) holding one
-``state.pt``: the model's state dict, the optimizer state, the
+``state.pt``: the model's state dict (with trainable BatchNorm's running
+averages, the JAX state's ``batch_stats``), the optimizer state, the
 ``TrainState`` step and seed, the epoch and its metrics, every tensor on
-the host. ``latest`` in the checkpoint directory names the newest one. The
+the host. Under data parallelism rank 0 writes it and it holds the whole
+(unsharded) state, so it restores at any number of ranks. ``latest`` in the checkpoint directory names the newest one. The
 port reads its own checkpoints, not the JAX package's orbax ones.
 ``tolerant_merge`` and ``replace_heads`` work on state dicts with the JAX
 package's semantics (its :103 and :137).
@@ -18,6 +20,7 @@ import re
 
 import torch
 
+from transfusion_torch.models.resnet import batch_stats
 from transfusion_torch.train.step import TrainState
 
 log = logging.getLogger("transfusion_torch")
@@ -103,7 +106,8 @@ class CheckpointManager:
         model.load_state_dict(sd, strict=True)
         dev = model.device
         return TrainState(step=saved["step"], seed=saved["seed"],
-                          opt_state=map_tensors(saved["opt_state"], lambda t: t.to(dev)))
+                          opt_state=map_tensors(saved["opt_state"], lambda t: t.to(dev)),
+                          batch_stats=batch_stats(model))
 
 
 def tolerant_merge(template: dict, restored: dict) -> dict:

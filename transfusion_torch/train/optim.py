@@ -27,7 +27,10 @@ Parameters, gradients and moments are dictionaries keyed by the port's
 parameter names. The optimizer is functional like optax's:
 ``tx.init(params)`` gives the state (``{"count", "mu", "nu"}`` for RAdam)
 and ``tx.update(grads, state, params)`` returns (updates, new state), to be
-added to the parameters.
+added to the parameters. Under fully-sharded data parallelism the tensors
+are a rank's shards (``parallel.fsdp.Sharding.views``) and
+:func:`attach_sharding` makes clipping's global norm add the shards'
+squares over the ranks.
 """
 
 from __future__ import annotations
@@ -108,6 +111,7 @@ class Chain:
             raise ValueError(f"unknown optimizer {name}")
         self.schedule, self.weight_decay, self.grad_clip = schedule, weight_decay, grad_clip
         self.scales, self.name, self.momentum = scales or {}, name, momentum
+        self.sharding = None  # parallel.fsdp.Sharding of sharded tensors, if any
 
     def init(self, params: dict) -> dict:
         def zeros():
@@ -117,8 +121,12 @@ class Chain:
                 "sgd": ("trace",), "rmsprop": ("nu", "trace")}[self.name]
         return {"count": 0, **{k: zeros() for k in keys}}
 
-    def _clip(self, g):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+    def _clip(self, g, names):
+        norms = torch._foreach_norm(g)
+        if self.sharding is None:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            norm = torch.sqrt(self.sharding.sq_norm(names, norms))
         # select(norm < max, g, g / norm * max), without a host sync.
         keep = norm < self.grad_clip
         clipped = torch._foreach_div(g, norm)
@@ -173,7 +181,7 @@ class Chain:
         names = list(params)
         g = [grads[k].float() for k in names]
         if self.grad_clip:
-            g = self._clip(g)
+            g = self._clip(g, names)
         count = state["count"] + 1
         new = {"count": count}
         if self.name in ("radam", "adam", "adamw"):
@@ -243,6 +251,14 @@ class FreezeMask:
         upd, state = self.inner.update(self._train(grads), state, self._train(params))
         return {k: upd[k] if k in upd else torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()}, state
+
+
+def attach_sharding(tx, sharding) -> None:
+    """Tell ``tx``'s chain (inside its wrappers) which of its tensors are
+    shards, for clipping's global norm; no-op when none is."""
+    while hasattr(tx, "inner"):
+        tx = tx.inner
+    tx.sharding = sharding if sharding is not None and sharding.sharded else None
 
 
 def make_optimizer(optimizer_cfg: dict, scheduler_cfg: dict | None, steps_per_epoch: int,

@@ -21,6 +21,21 @@ dropout draws from the step's ``DropoutRNG`` (keep masks on the model's
 device, attention-kernel seeds from a CPU generator). The eval step with
 losses samples from fixed generators (seeds 0 and 1, as JAX's ``key(0)`` and
 ``key(1)``), so every call draws the same keys.
+
+Data parallelism (a process group of R ranks, each with a contiguous slice
+of the global batch) gives the one-rank result, as JAX's data-sharded
+``jit`` does: every draw is made for the global batch and cut to the
+rank's rows (``rows``), the losses' normalisers and the trainable
+BatchNorm's statistics are summed over the ranks, the gradients are summed
+(all-reduce, or reduce-scatter onto shards under FSDP:
+:class:`~transfusion_torch.parallel.fsdp.Sharding`) before the
+multipliers, the optimizer and the non-finite guard, and the guard's
+verdict and the logged losses are the global ones.
+
+Trainable BatchNorm's running averages live in the model's buffers;
+``TrainState.batch_stats`` names them, and a skipped (non-finite) step
+puts back the values they had before its forward, as JAX keeps the old
+``batch_stats`` (step.py:246).
 """
 
 from __future__ import annotations
@@ -31,9 +46,13 @@ import numpy as np
 import torch
 
 from transfusion_torch.models.detector import detections_from_outputs
+from transfusion_torch.models.resnet import batch_stats
 from transfusion_torch.models.text_encoder import DropoutRNG
 from transfusion_torch.ops.matcher import uniform_draws
+from transfusion_torch.parallel.fsdp import Sharding
+from transfusion_torch.parallel.mesh import batch_rows, global_sum, world_size
 from transfusion_torch.train import losses as L
+from transfusion_torch.train.optim import attach_sharding
 
 
 @dataclass(frozen=True)
@@ -58,41 +77,45 @@ class LossConfig:
 @dataclass
 class TrainState:
     """The step count and the optimizer state; the parameters live in the
-    model."""
+    model, and so do the trainable BatchNorms' running averages, which
+    ``batch_stats`` names ({name: the live buffer}; None without them)."""
 
     step: int
     opt_state: dict
     seed: int = 0
+    batch_stats: dict | None = None
 
 
-def compute_losses(outputs, batch, loss_cfg: LossConfig, noun_w, verb_w, rpn_draws):
-    """(stacked losses [6] = [bbox, obj_prop, noun, verb, ttc, lm], metrics)."""
+def compute_losses(outputs, batch, loss_cfg: LossConfig, noun_w, verb_w, rpn_draws, reduce=None):
+    """(stacked losses [6] = [bbox, obj_prop, noun, verb, ttc, lm], metrics);
+    ``reduce`` sums each normaliser over the ranks (see :mod:`.losses`)."""
     roi = outputs["roi_outputs"]
     nouns, verbs, ttcs_t = roi["labels"]
     dev = roi["class_logits"].device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     bbox = obj_l = rpn_box_l = zero
     if loss_cfg.bbox_on:
-        bbox = L.box_loss(roi["box_regression"], nouns, roi["reg_targets"])
+        bbox = L.box_loss(roi["box_regression"], nouns, roi["reg_targets"], reduce)
     if loss_cfg.obj_prop_on:
         prop = outputs["proposals"]
         obj_l, rpn_box_l = L.rpn_loss(
             prop["objectness"], prop["pred_bbox_deltas"], prop["labels"], prop["matches"],
             prop["anchors"], batch["targets"]["boxes"].to(dev), loss_cfg.rpn_batch_size_per_image,
-            rpn_draws)
-    noun_l = L.noun_loss(roi["class_logits"], nouns, noun_w) if loss_cfg.noun_on else zero
-    verb_l = (L.verb_loss(roi["verb_logits"], verbs, verb_w, loss_cfg.verb_bg)
+            rpn_draws, reduce=reduce)
+    noun_l = L.noun_loss(roi["class_logits"], nouns, noun_w, reduce) if loss_cfg.noun_on else zero
+    verb_l = (L.verb_loss(roi["verb_logits"], verbs, verb_w, loss_cfg.verb_bg, reduce)
               if loss_cfg.verb_on else zero)
     if loss_cfg.ttc_on and "ttc_hand" in outputs:
         # The transformer TTC head's second pass.
         th = outputs["ttc_hand"]
-        ttc_l = L.ttc_hand_loss(th["ttcs"], th["valid"], batch["targets"]["ttcs"], loss_cfg.ttc_beta)
+        ttc_l = L.ttc_hand_loss(th["ttcs"], th["valid"], batch["targets"]["ttcs"], loss_cfg.ttc_beta,
+                                reduce)
     elif loss_cfg.ttc_on:
         ttc_l = L.ttc_loss(roi["ttcs"], ttcs_t, verbs, loss_cfg.ttc_beta, loss_cfg.ttc_bg,
-                           loss_cfg.ttc_bg_val)
+                           loss_cfg.ttc_bg_val, reduce)
     else:
         ttc_l = zero
-    lm_l = (L.lm_loss(outputs["lm"], batch["targets"], loss_cfg.last_noun_idx)
+    lm_l = (L.lm_loss(outputs["lm"], batch["targets"], loss_cfg.last_noun_idx, reduce)
             if loss_cfg.lm_on else zero)
     stacked = torch.stack([bbox, obj_l + rpn_box_l, noun_l, verb_l, ttc_l, lm_l])
     metrics = {"bbox_loss": bbox, "objectness_loss": obj_l, "loss_rpn_box_reg": rpn_box_l,
@@ -126,23 +149,47 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
 
 
-def make_train_step(model, tx, loss_cfg: LossConfig, noun_w, verb_w):
+def _cut(draws, rows):
+    """A rank's rows of global draws ((pos, neg) [total, ...])."""
+    return None if draws is None else tuple(d[rows[0]:rows[1]] for d in draws)
+
+
+def _global_metrics(metrics: dict) -> dict:
+    """Each loss summed over the ranks (each rank's is its share of the
+    global batch's), in one collective."""
+    if world_size() == 1:
+        return metrics
+    summed = global_sum(torch.stack([v.detach().float() for v in metrics.values()]))
+    return dict(zip(metrics, summed))
+
+
+def make_train_step(model, tx, loss_cfg: LossConfig, noun_w, verb_w, sharding: Sharding | None = None):
     """Returns ``step_fn(state, batch, loss_w, update_mult=None, draws=None)
     -> metrics``, which updates the model's parameters and ``state`` in
     place. ``loss_w`` is the 6-slot criterion weight vector; ``update_mult``
     a {name: 0/1} map that masks both the gradients (so frozen moments stay
     zero) and the updates (so weight decay cannot move frozen parameters);
     ``draws`` {"roi": (pos, neg) [B, P + G], "rpn": (pos, neg) [B, A]}
-    replaces the step's sampler draws."""
+    replaces the step's sampler draws (for the global batch under data
+    parallelism). ``sharding`` (default: every parameter replicated) says
+    how the ranks hold the parameters; the optimizer state must be
+    ``tx.init(sharding.views())``."""
     params = dict(model.named_parameters())
-    names, tensors = list(params), list(params.values())
+    names = list(params)
+    sharding = sharding if sharding is not None else Sharding(model)
+    attach_sharding(tx, sharding)
+    opt_params = sharding.views()
+    opt_tensors = list(opt_params.values())
     dev = model.device
     noun_w, verb_w = torch.as_tensor(noun_w, device=dev), torch.as_tensor(verb_w, device=dev)
     zeros: dict = {}  # read-only zero gradients, made on first need
+    stats = batch_stats(model)
 
-    def grad_or_zeros(k, p):
+    def grad_or_zeros(k, p, reduced: bool):
         if p.grad is not None:
             return p.grad
+        if reduced:  # summed in place over the ranks: its own tensor
+            return torch.zeros_like(p)
         z = zeros.get(k)
         if z is None:
             z = zeros[k] = torch.zeros_like(p)
@@ -152,38 +199,58 @@ def make_train_step(model, tx, loss_cfg: LossConfig, noun_w, verb_w):
         model.train()
         for p in params.values():
             p.grad = None
+        world = world_size()
+        reduce = global_sum if world > 1 else None
+        rows = batch_rows(batch["image"].shape[0])
         gen = step_generator(dev, state.seed, state.step)
         draws = draws or {}
-        outputs = model(batch, train=True, draws=draws.get("roi"), generator=gen,
-                        rng=DropoutRNG(dev, state.seed, state.step))
-        rpn_draws = draws.get("rpn")
+        before = None if stats is None else [t.clone() for t in stats.values()]
+        outputs = model(batch, train=True, draws=_cut(draws.get("roi"), rows), generator=gen,
+                        rng=DropoutRNG(dev, state.seed, state.step, rows), rows=rows)
+        rpn_draws = _cut(draws.get("rpn"), rows)
         if rpn_draws is None:
-            rpn_draws = uniform_draws(outputs["proposals"]["objectness"].shape, gen)
-        stacked, metrics = compute_losses(outputs, batch, loss_cfg, noun_w, verb_w, rpn_draws)
+            rpn_draws = uniform_draws(outputs["proposals"]["objectness"].shape, gen, rows=rows)
+        stacked, metrics = compute_losses(outputs, batch, loss_cfg, noun_w, verb_w, rpn_draws,
+                                          reduce)
         lw = torch.as_tensor(loss_w, dtype=torch.float32, device=dev)
         loss = (stacked * lw).sum() if loss_cfg.agg_mean else stacked.sum()
         loss.backward()
         # Parameters the loss does not reach (the frozen backbone behind the
         # tape cut) get zero gradients, as JAX's do.
-        grads = [grad_or_zeros(k, p) for k, p in params.items()]
+        active = names if update_mult is None else [k for k in names if update_mult[k]]
+        live = set(active) if world > 1 else set()
+        grads = {k: grad_or_zeros(k, p, k in live) for k, p in params.items()}
+        if world > 1:
+            grads = sharding.reduce_grads(grads, active)
+        grads = [grads[k] for k in names]
         mult = None if update_mult is None else [float(update_mult[k]) for k in names]
         if mult is not None:
             grads = torch._foreach_mul(grads, mult)
-        updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, params)
+        updates, opt_state = tx.update(dict(zip(names, grads)), state.opt_state, opt_params)
         updates = [updates[k] for k in names]
         if mult is not None:
             updates = torch._foreach_mul(updates, mult)
         # Non-finite guard: a step whose loss or gradients are not finite
-        # leaves parameters and optimizer state as they were.
+        # (on any rank) leaves parameters, optimizer state and running
+        # averages as they were.
         max_abs = torch.stack(torch._foreach_norm(grads, float("inf")))
-        good = bool(torch.isfinite(loss) & torch.isfinite(max_abs).all())
+        bad = (~(torch.isfinite(loss) & torch.isfinite(max_abs).all())).float()
+        metrics = _global_metrics({"loss": loss, **metrics, "nonfinite_skipped": bad})
+        good = not bool(metrics["nonfinite_skipped"] > 0)
         if good:
             with torch.no_grad():
-                torch._foreach_add_(tensors, updates)
+                torch._foreach_add_(opt_tensors, updates)
+            if sharding.sharded:
+                sharding.gather_()
             state.opt_state = opt_state
+        elif before is not None:
+            with torch.no_grad():
+                for t, old in zip(stats.values(), before):
+                    t.copy_(old)
         state.step += 1
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()},
-                "nonfinite_skipped": 0.0 if good else 1.0}
+        state.batch_stats = stats
+        metrics["nonfinite_skipped"] = 0.0 if good else 1.0
+        return {k: (v.detach() if isinstance(v, torch.Tensor) else v) for k, v in metrics.items()}
 
     return step_fn
 
@@ -226,7 +293,8 @@ def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_
     RPN slot is logged, not summed) under the normalised 5-slot ``loss_w``.
     The RoI and RPN samplers draw from generators seeded 0 and 1 on every
     call unless ``draws`` ({"roi", "rpn"}, as ``make_train_step``) are
-    given."""
+    given. Under data parallelism the detections are the rank's and the
+    losses the global batch's, as in the train step."""
     dev = model.device
     freqs = _freqs(noun_verb_frequencies, dev)
     noun_w, verb_w = torch.as_tensor(noun_w, device=dev), torch.as_tensor(verb_w, device=dev)
@@ -235,8 +303,9 @@ def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_
     def step_fn(batch, loss_w, draws=None):
         model.eval()
         draws = draws or {}
-        outputs = model.eval_with_losses(batch, draws.get("roi"),
-                                         torch.Generator(device=dev).manual_seed(0))
+        rows = batch_rows(batch["image"].shape[0])
+        outputs = model.eval_with_losses(batch, _cut(draws.get("roi"), rows),
+                                         torch.Generator(device=dev).manual_seed(0), rows)
         dets = detections_from_outputs(outputs["eval"], detector_cfg, noun_verb_frequencies=freqs)
         dets = _second_pass(model, dets, outputs["eval"], batch)
         if model.tcfg.ttc_hand is not None and "hand_boxes" in batch:
@@ -244,15 +313,15 @@ def make_eval_loss_step(model, detector_cfg, loss_cfg: LossConfig, noun_w, verb_
             # validation TTC loss scores the second pass's detections.
             k = min(model.tcfg.max_ttc_boxes, dets["ttcs"].shape[1])
             outputs["loss"]["ttc_hand"] = {"ttcs": dets["ttcs"][:, :k], "valid": dets["valid"][:, :k]}
-        rpn_draws = draws.get("rpn")
+        rpn_draws = _cut(draws.get("rpn"), rows)
         if rpn_draws is None:
             rpn_draws = uniform_draws(outputs["loss"]["proposals"]["objectness"].shape,
-                                      torch.Generator(device=dev).manual_seed(1))
+                                      torch.Generator(device=dev).manual_seed(1), rows=rows)
         stacked, metrics = compute_losses(outputs["loss"], batch, loss_cfg, noun_w, verb_w,
-                                          rpn_draws)
+                                          rpn_draws, global_sum if world_size() > 1 else None)
         val = stacked[torch.tensor([0, 2, 3, 4, 5], device=dev)]
         lw = torch.as_tensor(loss_w, dtype=torch.float32, device=dev)
         total = (val * lw).sum() if loss_cfg.agg_mean else val.sum()
-        return dets, {"loss": total, **metrics}
+        return dets, _global_metrics({"loss": total, **metrics})
 
     return step_fn

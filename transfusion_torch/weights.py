@@ -43,20 +43,20 @@ def _dense(out: dict, name: str, node: dict):
         out[f"{name}.bias"] = np.asarray(node["bias"])
 
 
-def _rcnn(rcnn: dict, out: dict):
-    bb = rcnn["backbone"]
+def _backbone(bb: dict, out: dict, body: str = "backbone.body"):
+    """The ResNet's params (and batch stats, merged in) under ``body``."""
     if "stem_s2d" in bb:
         raise ValueError("params use the space-to-depth stem; build them with s2d_stem=False")
     for name, node in bb.items():
         if name == "stem":
-            out["backbone.body.conv1.weight"] = _conv(node["conv"]["kernel"])
+            out[f"{body}.conv1.weight"] = _conv(node["conv"]["kernel"])
             for k, v in node["bn"].items():
-                out[f"backbone.body.bn1.{_BN[k]}"] = np.asarray(v)
+                out[f"{body}.bn1.{_BN[k]}"] = np.asarray(v)
             continue
         m = re.fullmatch(r"layer(\d)_(\d+)", name)
         if not m:
             raise KeyError(f"unexpected backbone param {name}")
-        base = f"backbone.body.layer{m.group(1)}.{m.group(2)}"
+        base = f"{body}.layer{m.group(1)}.{m.group(2)}"
         for sub, cn in node.items():
             if sub == "downsample":
                 out[f"{base}.downsample.0.weight"] = _conv(cn["conv"]["kernel"])
@@ -67,6 +67,20 @@ def _rcnn(rcnn: dict, out: dict):
                 out[f"{base}.conv{i}.weight"] = _conv(cn["conv"]["kernel"])
                 for k, v in cn["bn"].items():
                     out[f"{base}.bn{i}.{_BN[k]}"] = np.asarray(v)
+
+
+def resnet_state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict:
+    """A JAX ``ResNet``'s params (and, under trainable BN, its
+    ``batch_stats``) -> the state dict of the port's
+    :class:`~transfusion_torch.models.resnet.ResNet` (f32 tensors)."""
+    out: dict = {}
+    _backbone(_merge(params, batch_stats or {}), out, body="")
+    return {k.removeprefix("."): torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def _rcnn(rcnn: dict, out: dict):
+    _backbone(rcnn["backbone"], out)
     for name, node in rcnn["fpn"].items():
         kind, i = name.split("_")
         out[f"backbone.fpn.{kind}_blocks.{i}.weight"] = _conv(node["kernel"])
@@ -250,12 +264,30 @@ def _lm_head(name: str, node: dict, out: dict):
             _dense(out, f"{name}.{p}", node[p])
 
 
-def state_dict_from_jax(params: dict, fpn_features=None) -> dict:
+def _merge(into: dict, extra: dict) -> dict:
+    """``into`` with ``extra``'s leaves added at their paths (copies of the
+    dicts on the way)."""
+    out = dict(into)
+    for k, v in extra.items():
+        out[k] = _merge(out.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
+def state_dict_from_jax(params: dict, fpn_features=None, batch_stats: dict | None = None) -> dict:
     """JAX TransFusion params (``variables["params"]`` or the variables
     themselves, numpy or jax leaves) -> the port's state dict (f32 tensors).
     ``fpn_features`` orders the ``fusion_<lvl>`` and ``vis_fusion_<lvl>``
-    subtrees (default: by lvl)."""
+    subtrees (default: by lvl). Under trainable BN the params hold each
+    norm's ``scale`` / ``bias`` and ``batch_stats`` (``variables
+    ["batch_stats"]``, taken from the variables when not given) its
+    ``mean`` / ``var``: they become ``weight`` / ``bias`` /
+    ``running_mean`` / ``running_var``, the variance as flax keeps it
+    (biased)."""
+    if batch_stats is None and "batch_stats" in params:
+        batch_stats = params["batch_stats"]
     params = params.get("params", params)
+    if batch_stats:
+        params = _merge(params, batch_stats)
     params = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
     out: dict = {}
     _rcnn(params["rcnn"], out)
