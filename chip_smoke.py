@@ -104,7 +104,22 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    floor's (one rank against itself with the fusion's linear1 weights
    scaled by 1 + 1e-6) or 1e-4; (d) (b)'s checkpoint resumed at one rank
    holds (b)'s gathered state bit for bit, its evaluation at one rank
-   against model 2's.
+   against model 2's;
+11. the other backbones, each at flagship width (B 8, 768x1024, bf16
+   compute, f32 params, seeded weights): (a) ``model.type: mobilenet``
+   (trunk training from epoch 0, trainable_layers 3): two eval requests
+   and two train steps after a warm-up, finite losses, non-zero gradients
+   on the unfrozen blocks, the frozen ones unmoved, launches as
+   EXPECTED_MOBILENET predicts; (b) ``model.s2d_stem: true`` with its stem
+   folded from the plain flagship's: f32 backbone maps (TF32 off) against
+   the plain stem's within S2D_F32_TOL, bf16 detections against the plain
+   flagship's at the golden tolerance (recorded), both stems timed, and the
+   s2d flagship's request and step launching what the plain one's do; (c)
+   ``FasterRCNN(DetectorConfig(dual_stream=True))`` with a seeded flow [8,
+   768, 1024, 2]: a forward with detections and a forward + backward
+   through the detector's losses (K5 once a forward, K6 once a backward),
+   and with every fuse/proj weight zero under sum fusion the f32 RGB maps
+   equal to the plain ResNet's bit for bit.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -1531,15 +1546,93 @@ def fusion_option_train_step(torch, model, cfg, run_cfg):
     return step, state, criterion_weights({**run_cfg["run"]["criterion"]}, 0), mult
 
 
+def drive_config(torch, np, name: str, model, cfg, run_cfg, batch, want: tuple, watched, smi: str,
+                 build_s: float = 0.0, held: float = 0.0, frozen=()):
+    """One configuration's model at flagship width: an eval request
+    (warm-up, then REQUESTS_FO timed) and the train slice's step (RAdam,
+    the run config's epoch-0 freeze; warm-up, then TRAIN_STEPS_FO timed),
+    with launch counts against ``want`` (``_launches``' arguments), finite
+    detections and losses, non-zero gradients on ``watched`` and on the LM
+    heads, and ``frozen`` parameters that no step moved. Returns its record."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.detector import detections_from_outputs
+
+    nn_ = cfg.detector.roi.num_nouns
+    torch.cuda.reset_peak_memory_stats()
+
+    def request():
+        with torch.inference_mode():
+            out = model(batch)
+            return out, detections_from_outputs(out, cfg.detector)
+
+    request()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    eval_s = []
+    for _ in range(REQUESTS_FO):
+        t0 = time.perf_counter()
+        out, dets = request()
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+    per_forward = {k: v / REQUESTS_FO for k, v in LAUNCHES.items()}
+    if not all(torch.isfinite(dets[k]).all() for k in ("boxes", "scores", "ttcs")):
+        raise AssertionError(f"[{name}] non-finite detections")
+    if cfg.lm_on and tuple(out["lm"]["noun_logits"].shape) != (B, nn_ - 1):
+        raise AssertionError(f"[{name}] LM logits {tuple(out['lm']['noun_logits'].shape)}")
+    del out, dets
+
+    step, state, lw, mult = fusion_option_train_step(torch, model, cfg, run_cfg)
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in frozen}
+    step(state, batch, lw, mult)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    step_s, metrics = [], []
+    for _ in range(TRAIN_STEPS_FO):
+        t0 = time.perf_counter()
+        m = step(state, batch, lw, mult)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    per_step = {k: v / TRAIN_STEPS_FO for k, v in LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()) or m["nonfinite_skipped"] != 0.0:
+            raise AssertionError(f"[{name}] a train step went non-finite or was skipped: {m}")
+        if cfg.lm_on and not m["lm_loss"] > 0.0:
+            raise AssertionError(f"[{name}] lm loss {m['lm_loss']}")
+    watched = list(watched) + [n for n in params if n.startswith("lm_layer") and n.endswith(
+        "mlp_noun.weight")]
+    grads = {n: float(params[n].grad.float().norm()) for n in watched}
+    if not all(v > 0.0 for v in grads.values()):
+        raise AssertionError(f"[{name}] zero gradient: {grads}")
+    moved = [n for n in frozen if not torch.equal(params[n].detach(), before[n])]
+    if moved or any(mult[n] for n in frozen):
+        raise AssertionError(f"[{name}] frozen parameters moved: {moved[:5]}")
+    want_fwd, want_step = _launches(*want, step=False), _launches(*want, step=True)
+    got_fwd = {k: per_forward.get(k, 0) for k in want_fwd}
+    got_step = {k: per_step.get(k, 0) for k in want_step}
+    log(f"[{name}] built in {build_s:.1f} s "
+        f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M params); launches a forward "
+        f"{got_fwd}, a step {got_step}")
+    log(f"  eval s {[round(t, 4) for t in eval_s]}, step s {[round(t, 4) for t in step_s]}, "
+        f"peak {peak:.2f} GiB ({held:.2f} GiB held before the build; {smi}); losses "
+        f"{[round(m['loss'], 4) for m in metrics]}, lm {[round(m['lm_loss'], 4) for m in metrics]}; "
+        f"|grad| {json.dumps(grads)}; {len(frozen)} frozen tensors unmoved")
+    if got_fwd != want_fwd or got_step != want_step:
+        raise AssertionError(f"[{name}] launches differ from the prediction: forward {want_fwd}, "
+                             f"step {want_step}")
+    return {"eval_s": eval_s, "step_s": step_s, "peak_gib": peak, "held_gib": held, "build_s": build_s,
+            "launches_forward": per_forward, "launches_step": per_step, "metrics": metrics,
+            "grad_norms": grads, "frozen_unmoved": len(frozen), "card": smi}
+
+
 def phase_fusion_options(torch, np, smi: str):
     """Each of the five configurations at flagship width and depth: built
     from its run config through build_transfusion_config, seeded weights,
-    an eval request (warm-up, then REQUESTS_FO timed) and the train slice's
-    step (RAdam, epoch-0 freeze; warm-up, then TRAIN_STEPS_FO timed), with
+    then ``drive_config``: an eval request and the train slice's step, with
     launch counts, finite losses, and non-zero gradients on the LM head and
     upstream of the new layers."""
-    from transfusion_torch.kernels import LAUNCHES
-    from transfusion_torch.models.detector import detections_from_outputs
     from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
     from transfusion_torch.weights import init_random_
 
@@ -1561,72 +1654,9 @@ def phase_fusion_options(torch, np, smi: str):
         cfg = build_transfusion_config(run_cfg, 88, 75, dtype=torch.bfloat16)
         model = init_random_(TransFusion(cfg, device=dev), seed=0)
         build_s = time.perf_counter() - t0
-        nn_ = cfg.detector.roi.num_nouns
-        torch.cuda.reset_peak_memory_stats()
-
-        def request():
-            with torch.inference_mode():
-                out = model(batch)
-                return out, detections_from_outputs(out, cfg.detector)
-
-        request()
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        eval_s = []
-        for _ in range(REQUESTS_FO):
-            t0 = time.perf_counter()
-            out, dets = request()
-            torch.cuda.synchronize()
-            eval_s.append(time.perf_counter() - t0)
-        per_forward = {k: v / REQUESTS_FO for k, v in LAUNCHES.items()}
-        if not all(torch.isfinite(dets[k]).all() for k in ("boxes", "scores", "ttcs")):
-            raise AssertionError(f"[{name}] non-finite detections")
-        if cfg.lm_on and tuple(out["lm"]["noun_logits"].shape) != (B, nn_ - 1):
-            raise AssertionError(f"[{name}] LM logits {tuple(out['lm']['noun_logits'].shape)}")
-        del out, dets
-
-        step, state, lw, mult = fusion_option_train_step(torch, model, cfg, run_cfg)
-        step(state, batch, lw, mult)
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        step_s, metrics = [], []
-        for _ in range(TRAIN_STEPS_FO):
-            t0 = time.perf_counter()
-            m = step(state, batch, lw, mult)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
-            metrics.append({k: float(v) for k, v in m.items()})
-        per_step = {k: v / TRAIN_STEPS_FO for k, v in LAUNCHES.items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for m in metrics:
-            if not all(math.isfinite(v) for v in m.values()) or m["nonfinite_skipped"] != 0.0:
-                raise AssertionError(f"[{name}] a train step went non-finite or was skipped: {m}")
-            if cfg.lm_on and not m["lm_loss"] > 0.0:
-                raise AssertionError(f"[{name}] lm loss {m['lm_loss']}")
-        params = dict(model.named_parameters())
-        watched = [UPSTREAM[name]] + [n for n in params if n.startswith("lm_layer") and n.endswith(
-            "mlp_noun.weight")]
-        grads = {n: float(params[n].grad.float().norm()) for n in watched}
-        if not all(v > 0.0 for v in grads.values()):
-            raise AssertionError(f"[{name}] zero gradient: {grads}")
-        want_fwd = _launches(*EXPECTED_FUSION_OPTIONS[name], step=False)
-        want_step = _launches(*EXPECTED_FUSION_OPTIONS[name], step=True)
-        got_fwd = {k: per_forward.get(k, 0) for k in want_fwd}
-        got_step = {k: per_step.get(k, 0) for k in want_step}
-        log(f"[fusion options: {name}] built in {build_s:.1f} s "
-            f"({sum(p.numel() for p in params.values()) / 1e6:.1f} M params); launches a forward "
-            f"{got_fwd}, a step {got_step}")
-        log(f"  eval s {[round(t, 4) for t in eval_s]}, step s {[round(t, 4) for t in step_s]}, "
-            f"peak {peak:.2f} GiB ({held:.2f} GiB held before the build; {smi}); losses {[round(m['loss'], 4) for m in metrics]}, lm "
-            f"{[round(m['lm_loss'], 4) for m in metrics]}; |grad| {json.dumps(grads)}")
-        if got_fwd != want_fwd or got_step != want_step:
-            raise AssertionError(f"[{name}] launches differ from the prediction: forward {want_fwd}, "
-                                 f"step {want_step}")
-        records[name] = {"eval_s": eval_s, "step_s": step_s, "peak_gib": peak, "held_gib": held,
-                         "build_s": build_s,
-                         "launches_forward": per_forward, "launches_step": per_step,
-                         "metrics": metrics, "grad_norms": grads, "card": smi}
-        del model, state, step, params, m, metrics
+        records[name] = drive_config(torch, np, f"fusion options: {name}", model, cfg, run_cfg, batch,
+                                     EXPECTED_FUSION_OPTIONS[name], [UPSTREAM[name]], smi, build_s, held)
+        del model
         torch.cuda.empty_cache()
     return records
 
@@ -1999,19 +2029,21 @@ def dp_run_config(fsdp: bool = False, precision: int = 16, batch: int | None = N
 
 
 class f32_exact:
-    """f32 products in f32: TF32 off for cuDNN and cuBLAS inside the block."""
+    """f32 products in f32: TF32 off for cuDNN and cuBLAS inside the block;
+    with ``deterministic`` also cuDNN's deterministic algorithms."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, deterministic: bool = False):
+        self.torch, self.deterministic = torch, deterministic
 
     def __enter__(self):
         b = self.torch.backends
-        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic)
         b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+        b.cudnn.deterministic = self.deterministic or b.cudnn.deterministic
 
     def __exit__(self, *exc):
         b = self.torch.backends
-        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic = self.saved
 
 
 def dp_fit(torch, np, run_dir: str, fsdp: bool = False, bn_calls: list | None = None,
@@ -2737,6 +2769,299 @@ def phase_tensor_parallel(torch, np, smi: str):
 
 
 
+# ------------------------------------------- phase 11: the other backbones
+# (a) MobileNetV3-Large under the fusion and MiniLM: the trunk trains from
+# epoch 0 with trainable_layers 3 (blocks 6-12, backbone.body.7-13), the
+# stem and blocks 0-5 frozen by the multipliers alone (no tape cut). Level 0
+# at stride 4 is 3,072 patches + 64 tokens, past K2's gate, so the request
+# and the step launch what the flagship's do.
+MOBILENET_MODEL = {"type": "mobilenet", "train_ep": 0, "trainable_layers": 3}
+EXPECTED_MOBILENET = (5, 56, True)
+# (b) the s2d flagship launches what the plain flagship launches.
+EXPECTED_S2D = (5, 56, True)
+S2D_F32_TOL = 1e-5  # backbone maps, max|s2d - plain| / max|plain|, f32 with TF32 off
+# The golden test's tolerance (tests/test_golden_detections.py): float
+# fields rtol 1e-4 / atol 1e-3, integers exact.
+GOLDEN_RTOL, GOLDEN_ATOL = 1e-4, 1e-3
+# (c) the dual-stream detector: no fusion, no MiniLM; K5 once a forward, K6
+# once a backward.
+EXPECTED_DUAL_FORWARD = {"roi_align_fwd": 1}
+EXPECTED_DUAL_BACKWARD = {"roi_align_fwd": 1, "roi_align_bwd": 1}
+FLOW_SHAPE = (B, H, W, 2)
+
+
+def backbone_run_config(**model) -> dict:
+    cfg = flagship_run_config()
+    cfg["model"].update(model)
+    return cfg
+
+
+def f32_body(torch, body, cls=None, **kw):
+    """An f32 copy on the card of a ResNet-family body (``cls``, default
+    the body's own class, built with ``kw``; a ResNet over a dual-stream
+    body's RGB weights)."""
+    sizes = tuple(len(getattr(body, f"layer{i + 1}")) for i in range(4))
+    out = (cls or type(body))(sizes, dtype=torch.float32, **kw).cuda()
+    keys = set(out.state_dict())
+    out.load_state_dict({k: v for k, v in body.state_dict().items() if k in keys}, strict=True)
+    return out.eval()
+
+
+def compare_detections(torch, a: dict, b: dict) -> dict:
+    """Slot-by-slot agreement of two detection dicts at the golden
+    tolerance: the number of images whose every field agrees, the kept
+    counts, and the largest score gap over all slots."""
+    same = torch.ones(a["valid"].shape[0], dtype=torch.bool, device=a["valid"].device)
+    for k in a:
+        if a[k].dtype.is_floating_point:
+            ok = torch.isclose(a[k].float(), b[k].float(), rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL)
+        else:
+            ok = a[k] == b[k]
+        same &= ok.reshape(ok.shape[0], -1).all(1)
+    return {"images_within_golden": int(same.sum()), "images": int(same.numel()),
+            "kept": [int(a["valid"].sum()), int(b["valid"].sum())],
+            "max_score_gap": float((a["scores"].float() - b["scores"].float()).abs().max())}
+
+
+def phase_backbones(torch, np, smi: str) -> dict:
+    """Phase 11: (a) MobileNet, (b) the s2d stem, (c) the dual-stream
+    detector, each at flagship width (B 8, 768x1024, bf16 compute, f32
+    params, seeded weights)."""
+    t_phase = time.perf_counter()
+    rec = {"mobilenet": backbones_mobilenet(torch, np, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["s2d"] = backbones_s2d(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["dual_stream"] = backbones_dual_stream(torch, np, smi)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  backbones phase wall time {rec['phase_s']:.1f} s ({smi})")
+    return rec
+
+
+def backbones_mobilenet(torch, np, smi: str) -> dict:
+    """(a) ``model.type: mobilenet`` through build_transfusion_config: two
+    eval requests and two train steps after a warm-up; finite losses,
+    non-zero gradients on the unfrozen blocks, frozen blocks unmoved,
+    launches as EXPECTED_MOBILENET predicts."""
+    from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
+    from transfusion_torch.runner.trainer import backbone_stop_grad_stages
+    from transfusion_torch.weights import init_random_
+
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    run_cfg = backbone_run_config(**MOBILENET_MODEL)
+    if backbone_stop_grad_stages(0, run_cfg["model"]) != 0:
+        raise AssertionError("a MobileNet trunk takes no tape cut")
+    t0 = time.perf_counter()
+    cfg = build_transfusion_config(run_cfg, 88, 75, dtype=torch.bfloat16)
+    model = init_random_(TransFusion(cfg, device="cuda"), seed=0)
+    build_s = time.perf_counter() - t0
+    names = [n for n, _ in model.named_parameters() if n.startswith("backbone.body.")]
+    unit = {n: int(n.split(".")[2]) for n in names}
+    frozen = [n for n in names if unit[n] < 7]
+    # The first conv of each unfrozen block and the last block's squeeze-excite.
+    watched = [f"backbone.body.{i}.block.0.0.weight" for i in range(7, 14)] + [
+        "backbone.body.13.block.2.fc1.weight",
+        "cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight"]
+    out = drive_config(torch, np, "backbones: mobilenet", model, cfg, run_cfg,
+                       fusion_option_batch(torch, np), EXPECTED_MOBILENET, watched, smi, build_s,
+                       held, frozen)
+    out["trunk_params_m"] = sum(p.numel() for n, p in model.named_parameters() if n in unit) / 1e6
+    return out
+
+
+def backbones_s2d(torch, np, smi: str) -> dict:
+    """(b) The flagship with ``model.s2d_stem: true``, its stem folded from
+    the plain flagship's (``weights.fold_plain_stem``): f32 backbone maps
+    (TF32 off) against the plain stem's within S2D_F32_TOL; bf16 maps, and
+    bf16 detections against the plain flagship's at the golden tolerance,
+    recorded; both stems timed (conv, norm, ReLU and max pool; the conv and
+    the rearrangement alone beside them); then the s2d flagship's request
+    and step with launches as the plain flagship's and the body, s2d stem
+    included, unmoved by the flagship's freeze."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.detector import detections_from_outputs
+    from transfusion_torch.models.resnet import space_to_depth
+    from transfusion_torch.models.transfusion import (TransFusion, build_transfusion_config,
+                                                      flagship_config)
+    from transfusion_torch.runner.trainer import backbone_stop_grad_stages
+    from transfusion_torch.weights import fold_plain_stem, init_random_
+
+    run_cfg = backbone_run_config(s2d_stem=True)
+    cfg = build_transfusion_config(run_cfg, 88, 75, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(
+        cfg.detector, stop_grad_stages=backbone_stop_grad_stages(0, run_cfg["model"])))
+    if cfg != flagship_config(s2d_stem=True):
+        raise AssertionError("model.s2d_stem: true does not map onto flagship_config(s2d_stem=True)")
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    plain = init_random_(TransFusion(flagship_config(), device="cuda"), seed=0)
+    s2d = TransFusion(cfg, device="cuda")
+    s2d.load_state_dict(fold_plain_stem(plain.state_dict()), strict=True)
+    build_s = time.perf_counter() - t0
+    batch = fusion_option_batch(torch, np)
+    x = batch["image"].permute(0, 3, 1, 2)
+
+    def rel_gaps(a, b):
+        return {k: float((b[k].float() - a[k].float()).abs().max() / a[k].float().abs().max()) for k in a}
+
+    with f32_exact(torch), torch.inference_mode():
+        fp = f32_body(torch, plain.backbone.body)
+        fs = f32_body(torch, s2d.backbone.body, s2d_stem=True)
+        rel = rel_gaps(fp(x), fs(x))
+        del fp, fs
+    for k, v in rel.items():
+        check(f"[backbones: s2d] f32 level {k} maps, s2d stem vs plain stem", v, S2D_F32_TOL,
+              "max|s2d - plain| / max|plain|")
+    with torch.inference_mode():  # recorded, not held: bf16 rounds each stem's own sums
+        rel_bf16 = rel_gaps(plain.backbone.body(x), s2d.backbone.body(x))
+
+    def stem(body):
+        return lambda: F.max_pool2d(F.relu(body.bn1(body.stem_conv(x))), 3, stride=2, padding=1)
+
+    with torch.inference_mode():
+        stem_ms = {"plain": cuda_ms(stem(plain.backbone.body), 20),
+                   "s2d": cuda_ms(stem(s2d.backbone.body), 20),
+                   "plain_conv": cuda_ms(lambda: plain.backbone.body.stem_conv(x), 20),
+                   "s2d_conv": cuda_ms(lambda: s2d.backbone.body.stem_conv(x), 20),
+                   "s2d_rearrange": cuda_ms(lambda: space_to_depth(x.to(torch.bfloat16)), 20)}
+        dets = [detections_from_outputs(m(batch), m.cfg) for m in (plain, s2d)]
+    torch.cuda.synchronize()
+    det_cmp = compare_detections(torch, *dets)
+    log(f"[backbones: s2d] f32 maps {json.dumps(rel)}; bf16 maps {json.dumps(rel_bf16)}; stem ms "
+        f"{json.dumps(stem_ms)} ({smi}); bf16 detections against the plain flagship's at the golden "
+        f"tolerance: {json.dumps(det_cmp)}")
+    del dets, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    LAUNCHES.clear()
+    # The flagship's schedule freezes the whole body, the s2d stem with it.
+    frozen = [n for n, _ in s2d.named_parameters() if n.startswith("backbone.body.")]
+    out = drive_config(torch, np, "backbones: s2d", s2d, cfg, run_cfg, batch, EXPECTED_S2D,
+                       ["cross_fusion_encoders.0.t_encoder.layers.0.self_attn.in_proj_weight",
+                        "backbone.fpn.layer_blocks.0.weight"], smi, build_s, held, frozen)
+    return {**out, "f32_rel": rel, "bf16_rel": rel_bf16, "stem_ms": stem_ms, "bf16_detections": det_cmp}
+
+
+def backbones_dual_stream(torch, np, smi: str) -> dict:
+    """(c) ``FasterRCNN(DetectorConfig(dual_stream=True))`` with a seeded
+    flow [B, H, W, 2]: a forward with detections, then a training forward
+    and a backward through the detector's losses (K5 once a forward, K6
+    once a backward); then the zero-fusion oracle: with every fuse/proj
+    weight zero under sum fusion the f32 RGB maps equal the plain ResNet's
+    with the same weights bit for bit."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.detector import (DetectorConfig, FasterRCNN,
+                                                   detections_from_outputs)
+    from transfusion_torch.models.resnet import ResNet
+    from transfusion_torch.models.roi_heads import RoIConfig
+    from transfusion_torch.models.rpn import RPNConfig
+    from transfusion_torch.ops.matcher import uniform_draws
+    from transfusion_torch.train.step import LossConfig, compute_losses, step_generator
+    from transfusion_torch.weights import init_random_
+
+    dcfg = DetectorConfig(roi=RoIConfig(num_nouns=88, num_verbs=75, representation_size=1280,
+                                        score_thresh=0.01, additional_postprocessing=True),
+                          rpn=RPNConfig(score_thresh=0.01), dual_stream=True, dtype=torch.bfloat16)
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    det = init_random_(FasterRCNN(dcfg, device="cuda"), seed=0)
+    build_s = time.perf_counter() - t0
+    batch = fusion_option_batch(torch, np)
+    flow = torch.from_numpy(np.random.default_rng(2).normal(0, 2, FLOW_SHAPE).astype(np.float32)).cuda()
+    hw = (H, W)
+    torch.cuda.reset_peak_memory_stats()
+
+    def request():
+        with torch.inference_mode():
+            return detections_from_outputs(det(batch["image"], hw, flow=flow), dcfg)
+
+    request()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    eval_s = []
+    for _ in range(REQUESTS_FO):
+        t0 = time.perf_counter()
+        dets = request()
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t0)
+    per_forward = {k: v / REQUESTS_FO for k, v in LAUNCHES.items()}
+    if not all(torch.isfinite(dets[k]).all() for k in ("boxes", "scores", "ttcs")):
+        raise AssertionError("[backbones: dual stream] non-finite detections")
+    del dets
+
+    loss_cfg = LossConfig(rpn_batch_size_per_image=256, last_noun_idx=87)
+    ones_n, ones_v = torch.ones(88, device="cuda"), torch.ones(75, device="cuda")
+    params = dict(det.named_parameters())
+
+    def train(step: int):
+        det.train()
+        for p in params.values():
+            p.grad = None
+        gen = step_generator("cuda", 0, step)
+        out = det(batch["image"], hw, batch["targets"], train=True, generator=gen, flow=flow)
+        draws = uniform_draws(out["proposals"]["objectness"].shape, gen)
+        stacked, _ = compute_losses(out, batch, loss_cfg, ones_n, ones_v, draws)
+        stacked[:4].sum().backward()
+        det.eval()
+        return stacked.detach()
+
+    train(0)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    step_s, losses = [], []
+    for i in range(TRAIN_STEPS_FO):
+        t0 = time.perf_counter()
+        stacked = train(i + 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append([float(v) for v in stacked[:4]])
+    per_backward = {k: v / TRAIN_STEPS_FO for k, v in LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(math.isfinite(v) for row in losses for v in row):
+        raise AssertionError(f"[backbones: dual stream] non-finite losses {losses}")
+    watched = ["backbone.body.conv1.weight", "backbone.body.flow_conv1.weight",
+               "backbone.body.layer1.0.fuse.proj.weight", "backbone.body.layer4.2.fuse.proj.weight",
+               "backbone.body.flow_layer4.conv3.weight"]
+    grads = {n: float(params[n].grad.float().norm()) for n in watched}
+    if not all(v > 0.0 for v in grads.values()):
+        raise AssertionError(f"[backbones: dual stream] zero gradient: {grads}")
+    got_fwd = {k: per_forward.get(k, 0) for k in EXPECTED_DUAL_FORWARD}
+    got_bwd = {k: per_backward.get(k, 0) for k in EXPECTED_DUAL_BACKWARD}
+    log(f"[backbones: dual stream] built in {build_s:.1f} s ({sum(p.numel() for p in params.values()) / 1e6:.1f}"
+        f" M params); launches a forward {got_fwd}, a forward + backward {got_bwd}")
+    log(f"  eval s {[round(t, 4) for t in eval_s]}, forward + backward s {[round(t, 4) for t in step_s]}, "
+        f"peak {peak:.2f} GiB ({held:.2f} GiB held before the build; {smi}); losses "
+        f"[bbox, rpn, noun, verb] {losses}; |grad| {json.dumps(grads)}")
+    if got_fwd != EXPECTED_DUAL_FORWARD or got_bwd != EXPECTED_DUAL_BACKWARD:
+        raise AssertionError(f"[backbones: dual stream] launches differ from the prediction: forward "
+                             f"{EXPECTED_DUAL_FORWARD}, forward + backward {EXPECTED_DUAL_BACKWARD}")
+    for p in params.values():
+        p.grad = None
+
+    x, fl = batch["image"].permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2)
+    with f32_exact(torch, deterministic=True), torch.inference_mode():
+        dual = f32_body(torch, det.backbone.body)
+        for name, p in dual.named_parameters():
+            if ".fuse.proj." in name:
+                p.zero_()
+        plain = f32_body(torch, det.backbone.body, ResNet)
+        got, want = dual(x, fl), plain(x)
+        equal = {k: bool(torch.equal(got[k], want[k])) for k in want}
+        del dual, plain, got, want
+    log(f"  zero fuse/proj, sum fusion: RGB maps bit for bit the plain ResNet's (f32): {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"[backbones: dual stream] zero-fusion trunk differs from the plain ResNet: {equal}")
+    return {"eval_s": eval_s, "fwd_bwd_s": step_s, "peak_gib": peak, "held_gib": held,
+            "build_s": build_s, "launches_forward": per_forward, "launches_fwd_bwd": per_backward,
+            "losses": losses, "grad_norms": grads, "zero_fusion_bit_equal": equal, "card": smi}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2795,6 +3120,9 @@ def main() -> int:
     dp_rec = phase_data_parallel(torch, np, smi)
     torch.cuda.empty_cache()
     tp_rec = phase_tensor_parallel(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    backbones_rec = phase_backbones(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -2821,7 +3149,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
                    "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
-                   "data_parallel": dp_rec, "tensor_parallel": tp_rec,
+                   "data_parallel": dp_rec, "tensor_parallel": tp_rec, "backbones": backbones_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -19,6 +19,7 @@ import torch
 
 from tests.fixtures import make_synthetic_ego4d
 from tests.test_runner_cli import FUSION_CFG, MODEL_CFG, RUN_CFG
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,11 +155,20 @@ def _flagship_with(*changes):
     pytest.param("model.type", ("model", "type"), "mobilenet", id="model.type-path5-mobilenet"),
 ])
 def test_build_transfusion_config_refuses_unported_options(option, path, value):
-    """An option outside the port raises NotImplementedError naming it."""
-    from transfusion_torch.models.transfusion import build_transfusion_config
+    """The two backbone options the port once refused (NotImplementedError)
+    are ported: each maps as JAX's build_transfusion_config maps it, field
+    by field, at f32 and bf16."""
+    import jax.numpy as jnp
 
-    with pytest.raises(NotImplementedError, match=option.replace(".", r"\.")):
-        build_transfusion_config(_flagship_with((path, value)), 88, 75)
+    from transfusion_torch.models import transfusion as t_tf
+    from transfusion_tpu.models import transfusion as j_tf
+
+    cfg = _flagship_with((path, value))
+    for t_dt, j_dt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        got = t_tf.build_transfusion_config(cfg, 88, 75, dtype=t_dt)
+        _fields_match(got, j_tf.build_transfusion_config(cfg, 88, 75, dtype=j_dt))
+    field = {"model.s2d_stem": "s2d_stem", "model.type": "backbone"}[option]
+    assert getattr(got.detector, field) == value
 
 
 @pytest.mark.parametrize("option, path, value", [

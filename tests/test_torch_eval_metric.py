@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from tests.test_torch_slice import FREQS, _port_cfg, golden  # noqa: F401  (the fixture)
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 LOSS_KW = dict(ttc_on=True, rpn_batch_size_per_image=16, last_noun_idx=6)
 CRITERION = {"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "ttc": 0.5}

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch import weights as W
 
 D, HEADS = 32, 2

@@ -37,6 +37,7 @@ from tests.fixtures import make_synthetic_ego4d
 from tests.test_runner_cli import FUSION_CFG, MODEL_CFG, RUN_CFG
 from tests.test_torch_config_data import _derived, _fields_match, _same
 from tests.test_torch_fusion_options import D, _batch, _cfg
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch import weights as W
 
 TTC_HEAD = dict(feat_dim=32, ff_dim=48, num_heads=2, num_layers=1, num_steps=2, emb_steps_hand=20,
@@ -384,8 +385,11 @@ def test_trainer_fits_gpt2_with_the_ttc_head(files, tmp_path, monkeypatch):
     tokenizer over the full 50,257-token vocabulary; the tower narrowed to
     2 layers of 32, as the trunk is), the transformer TTC head and no hand
     cache (zero-filled hands): one epoch of two train steps and
-    validation, finite losses, a TTC loss from the head."""
+    validation, finite losses, a TTC loss from the head; 64 test-time
+    proposals an image (``few_test_proposals``)."""
     import functools
+
+    from tests.test_torch_trainer import few_test_proposals
 
     from transfusion_torch.models import transfusion as t_tf
     from transfusion_torch.models.lm_encoders import GPT2Config
@@ -393,6 +397,7 @@ def test_trainer_fits_gpt2_with_the_ttc_head(files, tmp_path, monkeypatch):
 
     monkeypatch.setattr(t_tf, "GPT2Config", functools.partial(GPT2Config, hidden_size=32, num_layers=2,
                                                                num_heads=2))
+    few_test_proposals(monkeypatch)
 
     cfg = _run_config(files, model_v="distilgpt2", text_pooling="gpt2", train_ep=0)
     cfg["run"]["hand_args"] = {"use": True, "path": str(tmp_path / "missing.pkl"), "num_steps": 2}

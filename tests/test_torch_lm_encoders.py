@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tests.test_tokenizers import SPM_PIECES, TRICKY, _encode_spm_proto, _toy_gpt2_files
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch import weights as W
 from transfusion_torch.models import lm_encoders as T
 from transfusion_tpu.models import lm_encoders as J

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tests.roi_align_oracle import roi_align_oracle
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.models.detector import rescale_boxes
 from transfusion_torch.ops import attention as t_attn
 from transfusion_torch.ops import boxes as t_boxes
@@ -336,8 +337,8 @@ def _port_files():
 
 
 # The trainer slice's, the fusion options', the towers' and TTC head's, the
-# data-parallel slice's and the model axis's modules, each of which the scan
-# must reach.
+# data-parallel slice's, the model axis's and the other backbones' modules,
+# each of which the scan must reach.
 TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", "data/labels.py",
                    "data/annotations.py", "data/splits.py", "data/transforms.py",
                    "data/dataset.py", "data/loader.py", "models/transfusion.py", "models/fusion.py",
@@ -346,7 +347,8 @@ TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", 
                    "train/checkpoint.py", "runner/trainer.py", "runner/run_experiment.py",
                    "models/lm_encoders.py", "models/ttc_head.py", "data/hand_pose.py", "data/glove.py",
                    "parallel/mesh.py", "parallel/fsdp.py", "ops/batch_norm.py",
-                   "parallel/tensor_parallel.py")
+                   "parallel/tensor_parallel.py", "models/mobilenet.py", "models/dual_stream.py",
+                   "data/readers.py")
 
 
 def test_port_imports_no_jax():

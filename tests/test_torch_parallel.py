@@ -247,12 +247,11 @@ def test_two_ranks_match_one_rank_over_an_epoch(tmp_path):
     sharded, against 1 rank: the same losses, parameters, running averages,
     optimizer state, mAP and result JSON; rank 0 alone writes; FSDP holds
     part of the moments a rank; the 2-rank FSDP checkpoint resumed at 1 rank
-    gives its state bit for bit and its evaluation."""
-    from transfusion_torch.runner.trainer import EgoNaoTrainer
-
+    gives its state bit for bit and its evaluation. Every run keeps 64
+    test-time proposals an image (``torch_parallel_workers.few_proposals``)."""
     wk.spawn(wk.fit_rank, 2, str(tmp_path))
-    fresh = EgoNaoTrainer(wk.tiny_run_config(), str(tmp_path / "one"), device="cpu",
-                          data=wk.tiny_data())
+    fresh = wk._tp_trainer(wk.tiny_run_config(), str(tmp_path / "one"), device="cpu",
+                           data=wk.tiny_data())
     fresh.ensure_state()
     before = {k: v.detach().clone() for k, v in fresh.model.named_parameters()}
     fresh.fit(1)
@@ -296,8 +295,8 @@ def test_two_ranks_match_one_rank_over_an_epoch(tmp_path):
         assert (local == total) if mode == "dp" else (local < 0.75 * total)
 
     ckpt = str(tmp_path / "fsdp" / "checkpoints" / "epoch_0000")
-    back = EgoNaoTrainer(wk.tiny_run_config(), str(tmp_path / "resumed"), device="cpu",
-                         data=wk.tiny_data())
+    back = wk._tp_trainer(wk.tiny_run_config(), str(tmp_path / "resumed"), device="cpu",
+                          data=wk.tiny_data())
     back.ensure_state(resume_from=ckpt)
     got = torch.load(tmp_path / "fsdp" / "rank0.pt", weights_only=False)
     for k, v in back.model.state_dict().items():

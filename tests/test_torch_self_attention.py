@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.ops import attention as t_attn
 from transfusion_tpu.ops import attention as j_attn
 

@@ -7,6 +7,8 @@ module outputs are held at rtol 1e-4 / atol 1e-4 (scaled to the
 activations' size where noted); detections at the golden test's own
 rtol 1e-4 / atol 1e-3 with integers exact."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from tests.test_golden_detections import GOLDEN, _fixed_batch, _tiny_model
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.models.detector import DetectorConfig, detections_from_outputs
 from transfusion_torch.models.roi_heads import RoIConfig, postprocess_detections
 from transfusion_torch.models.rpn import RPNConfig
@@ -272,9 +275,30 @@ def test_lm_head_state_dict_round_trips_through_the_translator(golden):
 
 
 def test_state_dict_from_jax_refuses_the_s2d_stem(golden):
+    """The s2d stem, once refused, is ported: the golden params with their
+    stem folded by JAX's fold_stem_to_s2d (stem_s2d + stem_bn, as the
+    translator stages an s2d target) load strictly into the port's s2d
+    model, which reproduces the golden detections."""
+    from transfusion_tpu.models.resnet import fold_stem_to_s2d
+
     params = jax.tree.map(np.asarray, golden["params"]["params"])
     bb = dict(params["rcnn"]["backbone"])
-    bb["stem_s2d"] = bb.pop("stem")
-    bad = dict(params, rcnn=dict(params["rcnn"], backbone=bb))
-    with pytest.raises(ValueError, match="s2d"):
-        state_dict_from_jax(bad)
+    stem = bb.pop("stem")
+    bb["stem_s2d"] = {"kernel": fold_stem_to_s2d(stem["conv"]["kernel"])}
+    bb["stem_bn"] = dict(stem["bn"])
+    s2d = dict(params, rcnn=dict(params["rcnn"], backbone=bb))
+    cfg = _port_cfg()
+    cfg = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, s2d_stem=True))
+    port = TransFusion(cfg, device="cpu")
+    port.load_state_dict(state_dict_from_jax(s2d), strict=True)
+    assert "backbone.body.stem_s2d.weight" in port.state_dict()
+    with torch.no_grad():
+        dets = detections_from_outputs(port(golden["tbatch"]), cfg.detector,
+                                       noun_verb_frequencies=torch.from_numpy(FREQS))
+    want = np.load(GOLDEN)
+    assert want["valid"].any()
+    for key in want.files:
+        if want[key].dtype.kind in "fc":
+            np.testing.assert_allclose(dets[key].numpy(), want[key], rtol=1e-4, atol=1e-3, err_msg=key)
+        else:
+            np.testing.assert_array_equal(dets[key].numpy(), want[key], err_msg=key)

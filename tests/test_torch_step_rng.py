@@ -14,6 +14,7 @@ import dataclasses
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.models import fusion
 from transfusion_torch.models import text_encoder as te
 from transfusion_torch.models.detector import DetectorConfig

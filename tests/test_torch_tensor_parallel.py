@@ -48,6 +48,7 @@ from tests.test_torch_language_paths import TTC_HEAD, _family
 from tests.test_torch_slice import FREQS, _port_cfg
 from tests.test_torch_trainer import cli_env  # noqa: F401  (fixture)
 from tests.test_runner_cli import RUN_CFG
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.parallel import mesh as M
 from transfusion_torch.parallel import tensor_parallel as tp
 from transfusion_torch.weights import shard_state_dict, state_dict_from_jax
@@ -246,6 +247,30 @@ def test_dropout_of_a_split_tensor_keeps_its_part_of_the_whole_mask(device_rows)
 
 
 # ---------------------------------------------------------- the ranks
+def test_cli_devices_2_mesh_model_2_on_the_cpu(cli_env, tmp_path):  # noqa: F811
+    """``--devices 2 --mesh-model 2 --device cpu`` through the CLI with
+    ``run.tp_min_dim`` 16: one epoch with validation, the challenge JSON,
+    one checkpoint holding the whole state and one history line."""
+    from transfusion_torch.runner.run_experiment import main
+
+    config = os.path.join(os.path.dirname(cli_env["config"]), "run_tp.yml")
+    with open(config, "w") as fp:
+        fp.write(RUN_CFG.replace("\nrun:\n", "\nrun:\n  tp_min_dim: 16\n", 1))
+    run_dir = str(tmp_path / "tp")
+    main(["--config", config, "--device", "cpu", "--devices", "2", "--mesh-model", "2",
+          "--run-dir", run_dir, "--epochs", "1"])
+    history = [json.loads(line) for line in open(os.path.join(run_dir, "history.jsonl"))]
+    assert len(history) == 1
+    rec = history[0]
+    assert rec["train_steps"] == 2 and rec["train_nonfinite_skipped"] == 0.0
+    assert np.isfinite(rec["train_loss"]) and 0.0 <= rec["map_box_noun_verb_val"] <= 100.0
+    assert len(json.load(open(os.path.join(run_dir, "results", "val_epoch0.json")))["results"]) == 4
+    state = torch.load(os.path.join(run_dir, "checkpoints", "epoch_0000", "state.pt"),
+                       weights_only=True)
+    qkv = [k for k in state["model"] if k.endswith("self_attn.in_proj_weight")]
+    assert qkv and all(state["model"][k].shape[0] == 3 * state["model"][k].shape[1] for k in qkv)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The 2-rank and 4-rank groups, and meanwhile here the one-rank
@@ -410,27 +435,3 @@ def test_data_2_by_model_2_with_fsdp_trains_as_one_rank(runs):
     _same_updates(r0, one, "2 x 2", 1e-4)
     _same_evaluation(r0, one, "2 x 2")
     assert r0["local_opt_numel"] < runs["two"][0]["fit64"]["local_opt_numel"]
-
-
-def test_cli_devices_2_mesh_model_2_on_the_cpu(cli_env, tmp_path):  # noqa: F811
-    """``--devices 2 --mesh-model 2 --device cpu`` through the CLI with
-    ``run.tp_min_dim`` 16: one epoch with validation, the challenge JSON,
-    one checkpoint holding the whole state and one history line."""
-    from transfusion_torch.runner.run_experiment import main
-
-    config = os.path.join(os.path.dirname(cli_env["config"]), "run_tp.yml")
-    with open(config, "w") as fp:
-        fp.write(RUN_CFG.replace("\nrun:\n", "\nrun:\n  tp_min_dim: 16\n", 1))
-    run_dir = str(tmp_path / "tp")
-    main(["--config", config, "--device", "cpu", "--devices", "2", "--mesh-model", "2",
-          "--run-dir", run_dir, "--epochs", "1"])
-    history = [json.loads(line) for line in open(os.path.join(run_dir, "history.jsonl"))]
-    assert len(history) == 1
-    rec = history[0]
-    assert rec["train_steps"] == 2 and rec["train_nonfinite_skipped"] == 0.0
-    assert np.isfinite(rec["train_loss"]) and 0.0 <= rec["map_box_noun_verb_val"] <= 100.0
-    assert len(json.load(open(os.path.join(run_dir, "results", "val_epoch0.json")))["results"]) == 4
-    state = torch.load(os.path.join(run_dir, "checkpoints", "epoch_0000", "state.pt"),
-                       weights_only=True)
-    qkv = [k for k in state["model"] if k.endswith("self_attn.in_proj_weight")]
-    assert qkv and all(state["model"][k].shape[0] == 3 * state["model"][k].shape[1] for k in qkv)

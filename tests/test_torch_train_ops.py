@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.ops import attention as t_attn
 from transfusion_torch.ops import matcher as t_match
 from transfusion_torch.ops import roi_align as t_roi

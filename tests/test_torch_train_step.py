@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.weights import radam_state_from_jax, state_dict_from_jax
 
 H, W, B = 96, 128, 2

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.weights import resnet_state_dict_from_jax
 
 N, S = 4, 64

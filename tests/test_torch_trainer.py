@@ -19,6 +19,7 @@ import torch
 
 from tests.fixtures import make_synthetic_ego4d
 from tests.test_runner_cli import FUSION_CFG, MODEL_CFG, RUN_CFG
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The mini fusion YAML with patches that fit the 64x80 bucket's stride-16
@@ -132,6 +133,16 @@ def test_monitor_metric_name_matches_jax(criterion):
     assert t_name(criterion) == want
 
 
+def few_test_proposals(monkeypatch):
+    """Make the trainer build models that keep 128 / 64 test-time
+    proposals an image (``torch_parallel_workers.few_proposals``), in this
+    process only."""
+    from tests.torch_parallel_workers import few_proposals
+    from transfusion_torch.runner import trainer as T
+
+    monkeypatch.setattr(T, "build_transfusion_config", few_proposals(T.build_transfusion_config))
+
+
 @pytest.fixture
 def cli_env(tmp_path, monkeypatch):
     code, data, runs = tmp_path / "code", tmp_path / "data", tmp_path / "runs"
@@ -157,11 +168,13 @@ def _cli(cli_env, capsys, *args):
     return capsys.readouterr().out
 
 
-def test_cli_train_val_export_resume(cli_env, capsys):
+def test_cli_train_val_export_resume(cli_env, capsys, monkeypatch):
     """The port's CLI on the tiny config, LM head on: one epoch with
     validation, the challenge JSON, a checkpoint (the LM head's weights in
     it) and best.json; then --run-val resumed from the checkpoint exports
-    the same results and the same metrics."""
+    the same results and the same metrics. 64 test-time proposals an image
+    (``few_test_proposals``)."""
+    few_test_proposals(monkeypatch)
     run_dir = os.path.join(cli_env["runs"], "itest")
     _cli(cli_env, capsys, "--run-dir", run_dir, "--epochs", "1")
     history = [json.loads(line) for line in open(os.path.join(run_dir, "history.jsonl"))]

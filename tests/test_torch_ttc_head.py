@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch import weights as W
 from transfusion_torch.models import ttc_head as T
 from transfusion_tpu.models import ttc_head as J

@@ -94,16 +94,16 @@ def trainer_record(trainer) -> dict:
 
 
 def fit_rank(rank: int, world: int, port: int, out: str) -> None:
-    """One epoch of ``tiny_run_config`` (train, validation, checkpoint),
-    data-parallel in ``out/dp`` and fully sharded in ``out/fsdp``."""
+    """One epoch of ``tiny_run_config`` (train, validation with 64
+    test-time proposals an image, checkpoint), data-parallel in ``out/dp``
+    and fully sharded in ``out/fsdp``."""
     from transfusion_torch.parallel import mesh
-    from transfusion_torch.runner.trainer import EgoNaoTrainer
 
     _join(rank, world, port)
     try:
         for mode in ("dp", "fsdp"):
-            trainer = EgoNaoTrainer(tiny_run_config(mode == "fsdp"), os.path.join(out, mode),
-                                    device="cpu", data=tiny_data())
+            trainer = _tp_trainer(tiny_run_config(mode == "fsdp"), os.path.join(out, mode),
+                                  device="cpu", data=tiny_data())
             trainer.fit(1)
             record = trainer_record(trainer)
             record["local_opt_numel"] = sum(v.numel()
@@ -195,23 +195,30 @@ def record_draws(records: list):
     return lambda: setattr(DropoutRNG, "keep", keep)
 
 
-def _tp_trainer(*args, f64: bool = False, **kwargs):
-    """An ``EgoNaoTrainer`` whose RPN keeps 64 proposals an image at test
-    time (the CPU's plain RoIAlign over every proposal is most of an
-    evaluation's time) and, under ``f64``, whose model computes in float64
-    (parameters and activations; the optimizer's moments and the
-    LayerNorms' statistics stay f32): the parity runs' arithmetic without
-    f32 rounding, which this tiny random-weight model amplifies."""
+def few_proposals(build):
+    """``build`` (a ``build_transfusion_config``) whose configurations keep
+    128 / 64 proposals an image at test time: the CPU's plain RoIAlign over
+    the RPN's 1,000 is most of a tiny model's evaluation."""
     from dataclasses import replace
 
+    def config(*a, **k):
+        cfg = build(*a, **k)
+        rpn = replace(cfg.detector.rpn, pre_nms_top_n_test=128, post_nms_top_n_test=64)
+        return replace(cfg, detector=replace(cfg.detector, rpn=rpn))
+
+    return config
+
+
+def _tp_trainer(*args, f64: bool = False, **kwargs):
+    """An ``EgoNaoTrainer`` whose RPN keeps 64 proposals an image at test
+    time (``few_proposals``) and, under ``f64``, whose model computes in
+    float64 (parameters and activations; the optimizer's moments and the
+    LayerNorms' statistics stay f32): the parity runs' arithmetic without
+    f32 rounding, which this tiny random-weight model amplifies."""
     from transfusion_torch.runner import trainer as T
 
     build, model = T.build_transfusion_config, T.TransFusion
-
-    def config(*a, **k):
-        cfg = build(*a, **({**k, "dtype": torch.float64} if f64 else k))
-        rpn = replace(cfg.detector.rpn, pre_nms_top_n_test=128, post_nms_top_n_test=64)
-        return replace(cfg, detector=replace(cfg.detector, rpn=rpn))
+    config = few_proposals(lambda *a, **k: build(*a, **({**k, "dtype": torch.float64} if f64 else k)))
 
     def f64_model(*a, **k):
         torch.set_default_dtype(torch.float64)

@@ -19,7 +19,9 @@ import torch
 from torch import nn
 
 from transfusion_torch.device import resolve_device
+from transfusion_torch.models.dual_stream import DualStreamResNet
 from transfusion_torch.models.fpn import FPN
+from transfusion_torch.models.mobilenet import MOBILENET_CHANNELS, MobileNetV3Features
 from transfusion_torch.models.resnet import RESNET50_CHANNELS, ResNet
 from transfusion_torch.models.roi_heads import (RoIConfig, RoIHeads, postprocess_detections,
                                                 select_training_samples)
@@ -39,6 +41,10 @@ class DetectorConfig:
     fpn_out_channels: int = 256
     stride_in_1x1: bool = True  # adapt_to_detectron
     stage_sizes: tuple = (3, 4, 6, 3)
+    # model.type: res50 | mobilenet | mobilenet_320 (the 320 variant differs
+    # only in resize and RPN defaults, which live in the run config; both
+    # build the MobileNetV3-Large trunk).
+    backbone: str = "res50"
     # model.batch_norm (replace_frozen_bn): trainable BatchNorm in the
     # trunk with this momentum (torch's convention: new = (1 - m) * old +
     # m * batch).
@@ -48,16 +54,37 @@ class DetectorConfig:
     # Frozen-prefix tape cut (units [stem, layer1..layer4]); the flagship
     # trains with 5: the body never unfreezes.
     stop_grad_stages: int = 0
+    # The two-stream variant: the backbone also reads an optical-flow input
+    # [B, H, W, 2], fused into every residual block ("sum" or "concat").
+    dual_stream: bool = False
+    flow_fusion: str = "sum"
     dtype: torch.dtype = torch.float32
 
 
+def backbone_channels(cfg: DetectorConfig) -> dict:
+    """{level: channels} of the backbone maps ``cfg`` builds."""
+    if cfg.backbone.startswith("mobilenet") and not cfg.dual_stream:
+        return dict(MOBILENET_CHANNELS)
+    return {str(i): RESNET50_CHANNELS[str(i)] for i in range(len(cfg.stage_sizes))}
+
+
 class _Backbone(nn.Module):
+    """The body (dual-stream ResNet, MobileNetV3-Large or ResNet, as JAX's
+    ``FasterRCNN.setup`` chooses) and the FPN over its channels.
+    MobileNet and dual-stream trunks keep frozen BN and no tape cut, as
+    JAX's."""
+
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype, cfg.stop_grad_stages,
-                           cfg.trainable_bn, cfg.bn_momentum)
-        chans = [RESNET50_CHANNELS[str(i)] for i in range(len(cfg.stage_sizes))]
-        self.fpn = FPN(chans, cfg.fpn_out_channels, cfg.dtype)
+        if cfg.dual_stream:
+            self.body = DualStreamResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.flow_fusion,
+                                         dtype=cfg.dtype)
+        elif cfg.backbone.startswith("mobilenet"):
+            self.body = MobileNetV3Features(cfg.dtype)
+        else:
+            self.body = ResNet(cfg.stage_sizes, cfg.stride_in_1x1, cfg.dtype, cfg.stop_grad_stages,
+                               cfg.trainable_bn, cfg.bn_momentum, cfg.s2d_stem)
+        self.fpn = FPN(list(backbone_channels(cfg).values()), cfg.fpn_out_channels, cfg.dtype)
 
 
 class _RPN(nn.Module):
@@ -72,8 +99,6 @@ class FasterRCNN(nn.Module):
     def __init__(self, cfg: DetectorConfig, device=None):
         super().__init__()
         dev = resolve_device(device)
-        if cfg.s2d_stem:
-            raise NotImplementedError("the port has the plain 7x7 stem only (s2d_stem=False)")
         self.cfg = cfg
         self.backbone = _Backbone(cfg)
         self.rpn = _RPN(cfg)
@@ -82,13 +107,20 @@ class FasterRCNN(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.backbone.body.conv1.weight.device
+        return self.backbone.fpn.inner_blocks[0].weight.device
 
-    def forward_features(self, images, train: bool = False):
+    def forward_features(self, images, train: bool = False, flow=None):
         """images [B, H, W, 3] (the JAX batch layout) -> backbone maps
         {"0".."3"}, NCHW in the channels-last memory format. ``train`` only
-        matters under trainable BN (batch statistics and their update)."""
-        x = images.to(self.device).permute(0, 3, 1, 2)
+        matters under trainable BN (batch statistics and their update).
+        ``flow`` [B, H, W, 2] feeds the dual-stream backbone, which needs
+        it."""
+        dev = self.device
+        x = images.to(dev).permute(0, 3, 1, 2)
+        if self.cfg.dual_stream:
+            if flow is None:
+                raise ValueError("dual_stream=True requires a flow input")
+            return self.backbone.body(x, flow.to(dev).permute(0, 3, 1, 2), train)
         return self.backbone.body(x, train)
 
     def apply_fpn(self, feats):
@@ -149,9 +181,9 @@ class FasterRCNN(nn.Module):
                               draws, generator, rng, rows)
 
     def forward(self, images, image_hw, targets=None, train: bool = False, draws=None,
-                generator=None, rng=None, rows=None):
-        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images, train)), image_hw,
-                                  targets, train, draws, generator, rng, rows=rows)
+                generator=None, rng=None, rows=None, flow=None):
+        return self.apply_rpn_roi(self.apply_fpn(self.forward_features(images, train, flow)),
+                                  image_hw, targets, train, draws, generator, rng, rows=rows)
 
 
 def detections_from_outputs(outputs: dict, cfg: DetectorConfig, noun_verb_frequencies=None,

@@ -6,8 +6,10 @@ across levels, clip-feature early fusion, every positional kind, language
 forwarding across levels, the sbert, GPT-2 and T5 towers in tokens or
 embedding mode, the identity path of precomputed language features, no
 language at all, the LM head, and the TTC head's second pass, for eval,
-validation with losses and training), and ``build_transfusion_config`` from
-a derived run config.
+validation with losses and training, over a ResNet-50 trunk with the plain
+or the space-to-depth stem or a MobileNetV3-Large trunk, whose channels the
+fusion levels take), and ``build_transfusion_config`` from a derived run
+config.
 
 ``TransFusion`` subclasses :class:`FasterRCNN` so its state dict has the
 reference's flat names (``backbone.*``, ``rpn.*``, ``roi_heads.*``,
@@ -38,7 +40,7 @@ import torch
 from torch import nn
 
 from transfusion_torch.device import resolve_device
-from transfusion_torch.models.detector import DetectorConfig, FasterRCNN
+from transfusion_torch.models.detector import DetectorConfig, FasterRCNN, backbone_channels
 from transfusion_torch.models.fusion import (
     CrossFusionLevel, EncoderLayer, PoolPredictor, RegroupPatches, _TEncoder)
 from transfusion_torch.models.fusion_variants import (
@@ -46,7 +48,6 @@ from transfusion_torch.models.fusion_variants import (
 from transfusion_torch.models.detector import detections_from_outputs
 from transfusion_torch.models.lm_encoders import (
     GPT2Config, GPT2Encoder, PooledLMEncoder, T5Config, T5Encoder, t5_config)
-from transfusion_torch.models.resnet import RESNET50_CHANNELS
 from transfusion_torch.models.roi_heads import RoIConfig
 from transfusion_torch.models.rpn import RPNConfig
 from transfusion_torch.models.text_encoder import BertConfig, NarrationEncoder
@@ -146,17 +147,19 @@ def _mean_lm_outs(outs: list) -> dict:
             "verb_logits": None if verb is None else sum(o["verb_logits"] for o in outs) / len(outs)}
 
 
-def flagship_config() -> TransFusionConfig:
+def flagship_config(s2d_stem: bool = False) -> TransFusionConfig:
     """The v2 flagship (ego_nao_res50_ego4dv2 + ego_vis_det_ego4dv2 dims):
-    bf16 compute with f32 params, the plain 7x7 stem, and attention kernel K2
-    on at its gate. Mirrors ``__graft_entry__.py::_flagship_config``."""
+    bf16 compute with f32 params, the plain 7x7 stem (``s2d_stem``: the
+    space-to-depth stem, the stem of the JAX package's default build), and
+    attention kernel K2 on at its gate. Mirrors
+    ``__graft_entry__.py::_flagship_config``."""
     dt = torch.bfloat16
     return TransFusionConfig(
         detector=DetectorConfig(
             roi=RoIConfig(num_nouns=88, num_verbs=75, representation_size=1280,
                           score_thresh=0.01, additional_postprocessing=True),
             rpn=RPNConfig(score_thresh=0.01),
-            s2d_stem=False,
+            s2d_stem=s2d_stem,
             stop_grad_stages=5,
             dtype=dt,
         ),
@@ -175,11 +178,11 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     onto TransFusionConfig, as ``transfusion_tpu/models/transfusion.py:468``
     does, with its ValueErrors: every fusion family and option, the LM head,
     the sbert / GPT-2 / T5 / identity language towers (or none), and the
-    linear or transformer TTC head. The port builds a ResNet-50 family trunk
-    with frozen or trainable BN (``model.batch_norm.use`` / ``.momentum``)
-    and the plain stem; another backbone or the s2d stem raises
-    NotImplementedError naming the option. Flash attention is on
-    unless the fusion args turn it off, as in JAX."""
+    linear or transformer TTC head; the backbone (``model.type``: res50,
+    mobilenet, mobilenet_320) with frozen or trainable BN
+    (``model.batch_norm.use`` / ``.momentum``; MobileNet keeps frozen BN, as
+    JAX's) and the plain or the space-to-depth stem (``model.s2d_stem``).
+    Flash attention is on unless the fusion args turn it off, as in JAX."""
     run, model = config["run"], config["model"]
     rcnn_kwargs = model.get("rcnn_kwargs", {})
     narr = run["narration_embeds"]
@@ -188,13 +191,6 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     fargs = fusion_cfg.get("args", {})
     criterion = run["criterion"]
     bn = model.get("batch_norm") or {}
-    unported = [
-        ("model.type", model.get("type", "res50"), "res50"),
-        ("model.s2d_stem", bool(model.get("s2d_stem", False)), False),
-    ]
-    for option, value, supported in unported:
-        if value != supported:
-            raise NotImplementedError(f"{option}={value!r} is not ported yet")
     # The transformer TTC head and its hand history (model.ttc_hand_head,
     # run.hand_args).
     ttc_hand, max_ttc_boxes = None, 5
@@ -259,6 +255,8 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     det = DetectorConfig(
         roi=roi,
         rpn=RPNConfig(score_thresh=rcnn_kwargs.get("rpn_score_thresh", 0.0)),
+        backbone=model.get("type", "res50"),
+        s2d_stem=bool(model.get("s2d_stem", False)),
         stride_in_1x1=model.get("adapt_to_detectron", False),
         stage_sizes=tuple(model.get("stage_sizes", (3, 4, 6, 3))),
         trainable_bn=bool(bn.get("use", False)),
@@ -386,8 +384,9 @@ class TransFusion(FasterRCNN):
         self.patches_to_token = nn.ModuleList()
         self.tokens_to_features = nn.ModuleList()
         self.cross_fusion_encoders = nn.ModuleList()
+        channels = backbone_channels(cfg.detector)
         for i, lvl in enumerate(f.fpn_features):
-            c = RESNET50_CHANNELS[str(lvl)]
+            c = channels[str(lvl)]
             ph, pw = f.patch_h[i], f.patch_w[i]
             self.patches_to_token.append(nn.Conv2d(c, d, (ph, pw), stride=(ph, pw), bias=False))
             self.tokens_to_features.append(RegroupPatches(d, c, ph, pw))

@@ -9,6 +9,8 @@ The freeze rules work over the port's ``named_parameters()``. The JAX
 parameter paths map onto the port's reference names: ``backbone`` (the
 ResNet body; JAX keeps the FPN outside it) is ``backbone.body.*``, its stem
 ``backbone.body.conv1``, stage ``layerN`` ``backbone.body.layerN.*``;
+a MobileNet body's stem is ``backbone.body.0`` and its block ``block_i``
+``backbone.body.{i + 1}`` (torchvision's ``features`` indices);
 ``narr_encoder`` is ``narr_pooling_layer.*`` with BERT layer ``layer_i`` at
 ``...encoder.layer.i.``, GPT-2 block ``h_i`` at ``...transformer.h.i.`` and
 T5 block ``block_i`` at ``...encoder.block.i.``; the RoI heads (``box_head``/``predictors``) are
@@ -53,6 +55,7 @@ from transfusion_torch.data.tokenizer import (GPT2BPETokenizer, SentencePieceTok
 from transfusion_torch.data.transforms import AugConfig
 from transfusion_torch.device import resolve_device
 from transfusion_torch.metrics import STAMeanAveragePrecision
+from transfusion_torch.models.mobilenet import BUILT_BLOCKS
 from transfusion_torch.models.resnet import batch_stats
 from transfusion_torch.models.transfusion import TransFusion, build_transfusion_config
 from transfusion_torch.parallel.fsdp import Sharding
@@ -67,7 +70,7 @@ from transfusion_torch.train.optim import make_optimizer
 from transfusion_torch.train.step import (LossConfig, TrainState, criterion_weights,
                                           make_eval_loss_step, make_train_step,
                                           normalized_criterion_weights)
-from transfusion_torch.weights import init_random_, strip_wrapper_prefixes
+from transfusion_torch.weights import fold_plain_stem, init_random_, strip_wrapper_prefixes
 
 log = logging.getLogger("transfusion_torch")
 
@@ -113,9 +116,10 @@ def backbone_stop_grad_stages(epoch: int, model_cfg: dict, freeze_backbone_at_ep
     """Frozen-prefix depth of the ResNet body for the epoch's train step:
     the whole body [stem..layer4] (5) before ``train_ep`` or with
     ``train_ep == -1``; afterwards all but the deepest ``trainable_layers``;
-    ``freeze_backbone_at_epoch`` refreezes everything."""
+    ``freeze_backbone_at_epoch`` refreezes everything. A MobileNet body has
+    no tape cut (0): its frozen blocks are held by the multipliers alone."""
     if str(model_cfg.get("type", "res50")).startswith("mobilenet"):
-        raise NotImplementedError("the MobileNet backbone is not ported yet")
+        return 0
     train_ep = model_cfg.get("train_ep", -1)
     backbone_on = train_ep != -1 and epoch >= train_ep
     if freeze_backbone_at_epoch != -1 and epoch >= freeze_backbone_at_epoch:
@@ -134,16 +138,26 @@ def unfreeze_multipliers(named_params, epoch: int, model_cfg: dict, narr_train_e
     ``train_ep``, its unfreeze set: the last ``finetune_layers`` BERT layers
     (sbert), the last block's MLP (GPT-2) or the last block (T5), with
     ``num_bert_layers`` the tower's depth; ``freeze_backbone_at`` leaves only
-    the RoI heads training."""
-    if str(model_cfg.get("type", "res50")).startswith("mobilenet"):
-        raise NotImplementedError("the MobileNet backbone is not ported yet")
+    the RoI heads training. A MobileNet body splits into stages at their
+    first blocks [stem, block 1, 3, 6, 12] (torchvision's
+    ``mobilenet_backbone`` freezes up to ``stage_indices[6 -
+    trainable_layers]``): ``trainable_layers`` 2-5 train blocks 12, 6, 3 or 1
+    onwards, 6 everything, 0-1 nothing of the built blocks."""
     train_ep = model_cfg.get("train_ep", -1)
     trainable_layers = model_cfg.get("trainable_layers", 0)
     backbone_on = train_ep != -1 and epoch >= train_ep
-    # layers_to_train = [layer4, layer3, layer2, layer1, stem][:trainable_layers]
-    unfrozen_units = {f"layer{4 - i}" for i in range(min(trainable_layers, 4))}
-    if trainable_layers == 5:
-        unfrozen_units |= {"conv1", "bn1"}  # the stem
+    if str(model_cfg.get("type", "res50")).startswith("mobilenet"):
+        # JAX's block_i is features[i + 1]; the stem is features[0].
+        k = min(trainable_layers, 6)
+        first = None if k <= 1 else (0 if k >= 6 else (None, 1, 3, 6, 12)[6 - k])
+        unfrozen_units = set() if first is None else {str(b + 1) for b in range(first, BUILT_BLOCKS)}
+        if k >= 6:
+            unfrozen_units.add("0")
+    else:
+        # layers_to_train = [layer4, layer3, layer2, layer1, stem][:trainable_layers]
+        unfrozen_units = {f"layer{4 - i}" for i in range(min(trainable_layers, 4))}
+        if trainable_layers == 5:
+            unfrozen_units |= {"conv1", "bn1", "stem_s2d"}  # the stem
     narr_on = narr_train_ep != -1 and epoch >= narr_train_ep
     if text_encoder == "gpt2":
         tower = re.compile(rf"\.transformer\.h\.{num_bert_layers - 1}\.mlp\.")
@@ -477,7 +491,8 @@ class EgoNaoTrainer:
         rcnn_factory.py:85-108): a reference torch ``.pth``/``.ckpt`` (the
         port keeps its names, so the wrapper prefixes are stripped and the
         tensors loaded) or a port checkpoint directory. ``model.load_fpn_rpn:
-        False`` keeps the FPN, RPN and RoI heads fresh."""
+        False`` keeps the FPN, RPN and RoI heads fresh. A plain stem loads into
+        a space-to-depth model through the fold (``weights.fold_plain_stem``)."""
         path = os.path.expandvars(path)
         fresh = self.model.state_dict()
         if os.path.isdir(path):
@@ -488,6 +503,8 @@ class EgoNaoTrainer:
             sd = strip_wrapper_prefixes(sd.get("state_dict", sd))
         else:
             raise FileNotFoundError(f"model.pretrained path not found: {path}")
+        if "backbone.body.stem_s2d.weight" in fresh:
+            sd = fold_plain_stem(sd)
         if self.model.tensor_parallel is not None:
             sd = self.model.tensor_parallel.shard_state_dict(sd)
         merged = tolerant_merge(fresh, sd)

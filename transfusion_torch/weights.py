@@ -3,11 +3,12 @@ random from a seed.
 
 :func:`state_dict_from_jax` is the inverse of
 ``transfusion_tpu/tools/translate_checkpoint.py::translate_reference_checkpoint``:
-it takes a TransFusion param tree (numpy leaves, built with the plain 7x7
-stem) of any fusion family and option, language tower and TTC head and
-returns the port's state dict under the reference torch names (JAX's
-module names where the reference has none: see
-:mod:`transfusion_torch.models.transfusion`). The translator has no
+it takes a TransFusion param tree (numpy leaves) of any backbone (ResNet
+with the plain or the space-to-depth stem, MobileNetV3-Large, dual-stream),
+fusion family and option, language tower and TTC head and returns the
+port's state dict under the reference torch names (JAX's module names
+where the reference has none: see :mod:`transfusion_torch.models.transfusion`,
+``models/mobilenet.py``, ``models/dual_stream.py``). The translator has no
 mapping for the transformer TTC head or the sbert type embeddings, so those
 weights cross from JAX to the port only. It
 undoes the translator's four layout changes: HWIO -> OIHW convs, the fc6
@@ -43,36 +44,110 @@ def _dense(out: dict, name: str, node: dict):
         out[f"{name}.bias"] = np.asarray(node["bias"])
 
 
-def _backbone(bb: dict, out: dict, body: str = "backbone.body"):
-    """The ResNet's params (and batch stats, merged in) under ``body``."""
-    if "stem_s2d" in bb:
-        raise ValueError("params use the space-to-depth stem; build them with s2d_stem=False")
+def _conv_norm(out: dict, conv: str, norm: str, node: dict):
+    """A JAX ConvNorm / ConvBN ({conv: {kernel}, bn: {...}}) at the port's
+    conv and norm names."""
+    out[f"{conv}.weight"] = _conv(node["conv"]["kernel"])
+    for k, v in node["bn"].items():
+        out[f"{norm}.{_BN[k]}"] = np.asarray(v)
+
+
+def _bottleneck(base: str, node: dict, out: dict):
+    """A (dual) bottleneck's convs, norms and fusion projection."""
+    for sub, cn in node.items():
+        if sub == "downsample":
+            _conv_norm(out, f"{base}.downsample.0", f"{base}.downsample.1", cn)
+        elif sub == "fuse":
+            out[f"{base}.fuse.proj.weight"] = _conv(cn["proj"]["kernel"])
+        else:
+            i = sub.removeprefix("conv")
+            _conv_norm(out, f"{base}.conv{i}", f"{base}.bn{i}", cn)
+
+
+def _mobilenet(bb: dict, out: dict, body: str):
+    """MobileNetV3Features: the stem at ``{body}.0``, block ``block_i`` at
+    ``{body}.{i + 1}.block.{j}`` (expand, depthwise, se, project in that
+    order, each where present). Blocks 13 and 14 feed no returned level; the
+    port does not build them and their params are skipped."""
+    from transfusion_torch.models.mobilenet import BUILT_BLOCKS
+
     for name, node in bb.items():
         if name == "stem":
-            out[f"{body}.conv1.weight"] = _conv(node["conv"]["kernel"])
-            for k, v in node["bn"].items():
+            _conv_norm(out, f"{body}.0.0", f"{body}.0.1", node)
+            continue
+        m = re.fullmatch(r"block_(\d+)", name)
+        if not m:
+            raise KeyError(f"unexpected MobileNet param {name}")
+        i = int(m.group(1))
+        if i >= BUILT_BLOCKS:
+            continue
+        parts = [p for p in ("expand", "depthwise", "se", "project") if p in node]
+        for j, part in enumerate(parts):
+            base = f"{body}.{i + 1}.block.{j}"
+            if part == "se":
+                for fc in ("fc1", "fc2"):
+                    out[f"{base}.{fc}.weight"] = _conv(node["se"][fc]["kernel"])
+                    out[f"{base}.{fc}.bias"] = np.asarray(node["se"][fc]["bias"])
+            else:
+                _conv_norm(out, f"{base}.0", f"{base}.1", node[part])
+
+
+def _backbone(bb: dict, out: dict, body: str = "backbone.body"):
+    """The backbone's params (and batch stats, merged in) under ``body``:
+    a ResNet (plain ``stem`` or ``stem_s2d`` + ``stem_bn``), a MobileNet
+    (``block_i``) or a dual-stream ResNet (``flow_stem``, ``flow{s}_*`` and
+    each block's ``fuse``)."""
+    if "block_0" in bb:
+        _mobilenet(bb, out, body)
+        return
+    for name, node in bb.items():
+        if name in ("stem", "flow_stem"):
+            pre = "flow_" if name == "flow_stem" else ""
+            _conv_norm(out, f"{body}.{pre}conv1", f"{body}.{pre}bn1", node)
+            continue
+        if name == "stem_s2d":
+            out[f"{body}.stem_s2d.weight"] = _conv(node["kernel"])
+            continue
+        if name == "stem_bn":
+            for k, v in node.items():
                 out[f"{body}.bn1.{_BN[k]}"] = np.asarray(v)
+            continue
+        m = re.fullmatch(r"flow(\d)_(conv\d|down)", name)
+        if m:
+            base = f"{body}.flow_layer{m.group(1)}"
+            if m.group(2) == "down":
+                _conv_norm(out, f"{base}.downsample.0", f"{base}.downsample.1", node)
+            else:
+                i = m.group(2).removeprefix("conv")
+                _conv_norm(out, f"{base}.conv{i}", f"{base}.bn{i}", node)
             continue
         m = re.fullmatch(r"layer(\d)_(\d+)", name)
         if not m:
             raise KeyError(f"unexpected backbone param {name}")
-        base = f"{body}.layer{m.group(1)}.{m.group(2)}"
-        for sub, cn in node.items():
-            if sub == "downsample":
-                out[f"{base}.downsample.0.weight"] = _conv(cn["conv"]["kernel"])
-                for k, v in cn["bn"].items():
-                    out[f"{base}.downsample.1.{_BN[k]}"] = np.asarray(v)
-            else:
-                i = sub.removeprefix("conv")
-                out[f"{base}.conv{i}.weight"] = _conv(cn["conv"]["kernel"])
-                for k, v in cn["bn"].items():
-                    out[f"{base}.bn{i}.{_BN[k]}"] = np.asarray(v)
+        _bottleneck(f"{body}.layer{m.group(1)}.{m.group(2)}", node, out)
+
+
+def fold_plain_stem(state_dict: dict) -> dict:
+    """A detector state dict with a plain stem (``backbone.body.conv1.weight``,
+    a reference checkpoint's) made loadable into a space-to-depth model: the
+    conv folded into ``backbone.body.stem_s2d.weight``
+    (``resnet.fold_stem_weight``), ``bn1`` kept, as ``translate_checkpoint.py``
+    folds a reference stem for JAX's s2d target. A state dict without the
+    plain stem comes back as it is."""
+    from transfusion_torch.models.resnet import fold_stem_weight
+
+    key = "backbone.body.conv1.weight"
+    if key not in state_dict:
+        return state_dict
+    out = {k: v for k, v in state_dict.items() if k != key}
+    out["backbone.body.stem_s2d.weight"] = fold_stem_weight(torch.as_tensor(state_dict[key]))
+    return out
 
 
 def resnet_state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict:
-    """A JAX ``ResNet``'s params (and, under trainable BN, its
-    ``batch_stats``) -> the state dict of the port's
-    :class:`~transfusion_torch.models.resnet.ResNet` (f32 tensors)."""
+    """A JAX backbone body's params (``ResNet``, ``MobileNetV3Features`` or
+    ``DualStreamResNet``; under trainable BN with its ``batch_stats``) ->
+    the state dict of the port's body (f32 tensors)."""
     out: dict = {}
     _backbone(_merge(params, batch_stats or {}), out, body="")
     return {k.removeprefix("."): torch.from_numpy(np.array(v, dtype=np.float32))
@@ -386,8 +461,15 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     embeddings of the towers, 0.01-normal RoI predictors. A model split over
     a model axis draws each whole tensor and keeps its slice, so every rank
     holds the one-rank model's values."""
+    from transfusion_torch.models.resnet import FrozenBatchNorm2d
+    from transfusion_torch.ops.batch_norm import BatchNorm
+
     gen = torch.Generator().manual_seed(seed)
     split = getattr(model, "tensor_parallel", None)
+    # Norms whose names say nothing of it (MobileNet's ``{i}.block.{j}.1``,
+    # the motion stem's ``flow_bn1``).
+    bn_scales = {f"{n}.weight" for n, m in model.named_modules()
+                 if isinstance(m, (FrozenBatchNorm2d, BatchNorm))}
     for name, t in list(model.named_parameters()) + list(model.named_buffers()):
         shape = split.whole_shapes.get(name, t.shape) if split is not None else t.shape
         if name.endswith(("running_mean", "table")):
@@ -408,9 +490,9 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
                 and len(shape) == 2:
             val = torch.randn(shape, generator=gen) * 0.02
         elif len(shape) == 1:
-            is_scale = name.endswith("weight") and ("norm" in name.lower() or ".bn" in name
-                                                    or "downsample.1" in name or ".ln." in name
-                                                    or re.search(r"\.ln_(\d|f)\.", name))
+            is_scale = name in bn_scales or name.endswith("weight") and (
+                "norm" in name.lower() or ".bn" in name or "downsample.1" in name or ".ln." in name
+                or re.search(r"\.ln_(\d|f)\.", name))
             val = torch.ones(shape) if is_scale else torch.zeros(shape)
         else:
             # GPT-2's Conv1D weights are [in, out].
