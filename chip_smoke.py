@@ -119,7 +119,27 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    768, 1024, 2]: a forward with detections and a forward + backward
    through the detector's losses (K5 once a forward, K6 once a backward),
    and with every fuse/proj weight zero under sum fusion the f32 RGB maps
-   equal to the plain ResNet's bit for bit.
+   equal to the plain ResNet's bit for bit;
+12. the legacy heatmap family: K1 at the widths it adds (HM_LN_SHAPES: the
+   fusion's 300-wide tokens at 6,152, 6,672 and 8 rows in both forms, a
+   batch-strided view, and an odd width, 301, in f32 and bf16; its
+   backward at the two residual shapes) against the plain versions, timed
+   beside F.layer_norm and its bound, the flagship's level-0 shapes
+   re-timed; a tiny f32 HeatmapCrossFusion of each fusion family on the
+   card (TF32 off) against the CPU within 1e-4; then at B 8, 768x1024, f32,
+   seeded weights, the flagship's 88 nouns and 75 verbs: (a) ResnetNao
+   (ResNet-50, heatmap_blocks 3) with hmap_criterion mse on gaussian
+   targets, (b) its multivar_n form with multivar_n_loss (16 draws from a
+   seeded generator on the card), (c) ScnnNao at the factory widths with
+   kl_div (agg sum), (d1) HeatmapCrossFusion's defaults over seeded
+   features [8, 48, 64, 1024] and a narration vector, (d2) its
+   cross_transformer / token_embeddings / regroup form over 64 tokens with
+   half of one image's padded, each with noun, verb and TTC heads: two
+   eval forwards and two train steps (RAdam through make_optimizer) after
+   a warm-up, launches as HM_EXPECTED predicts (K1 10 / 1 and 4 / 1 a
+   forward for (d1) / (d2), none for (a)-(c)), finite outputs and losses,
+   non-zero gradients on the heatmap head and upstream of every K1 norm;
+   eval s, step s and peak GiB beside the card's name and power limit.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -3062,6 +3082,311 @@ def backbones_dual_stream(torch, np, smi: str) -> dict:
             "losses": losses, "grad_norms": grads, "zero_fusion_bit_equal": equal, "card": smi}
 
 
+# Phase 12: the legacy heatmap family at B 8, 768x1024, f32 (each config's
+# default dtype), seeded weights, the flagship's class counts (phase 7's
+# build_transfusion_config(run_cfg, 88, 75): 87 nouns and 74 verbs, each
+# with its background class) and its optimizer (flagship_run_config():
+# RAdam lr 1e-4, wd 1e-5).
+HM_NOUNS, HM_VERBS = 88, 75
+HM_FEAT = (B, 48, 64, 1024)  # ResNet-50's stage-3 map at 768x1024: 24 x 32 = 768 patches of 2 x 2
+HM_TOKEN_DIM, HM_LANG = 300, 64
+HM_REQUESTS, HM_STEPS = 2, 2  # each model, after a warm-up
+# Predicted K1 launches a forward (a train step's forward launches the same;
+# the backward is layer_norm's closed form): (d1) 3 visual + 2 language QKV
+# layers x 2 residual norms, and class_post_ln; (d2) 2 encoder layers x 2,
+# and class_post_ln; ResnetNao and ScnnNao run no kernel.
+HM_EXPECTED = {"resnet_nao": {}, "resnet_nao_multivar": {}, "scnn_nao": {},
+               "fusion_asymmetric": {"residual_layer_norm": 10, "layer_norm": 1},
+               "fusion_cross_transformer": {"residual_layer_norm": 4, "layer_norm": 1}}
+# K1 at the shapes the phase adds, f32 (the models' dtype) and bf16: the
+# asymmetric visual stream (8 x 769 rows of 300), the cross-transformer's
+# joint sequence (8 x 834: 770 visual + 64 language tokens), the language
+# stream (8 rows, residual) and class_post_ln (8 rows, plain), the patch
+# tokens as the view x[:, 1:769] reads them (x[:, :768] of [8, 769, 300]),
+# and an odd width (301, scalar loads) in both forms.
+HM_LN_SHAPES = tuple(
+    {**shape, "dtype": dt, "label": f"{shape['label']} {dt}"}
+    for shape in ({"label": "heatmap fusion visual norms", "n": 769, "d": 300, "residual": True},
+                  {"label": "heatmap fusion joint norms", "n": 834, "d": 300, "residual": True},
+                  {"label": "heatmap fusion language norms", "n": 1, "d": 300, "residual": True},
+                  {"label": "heatmap fusion class_post_ln", "n": 1, "d": 300, "residual": False},
+                  {"label": "patch tokens, view", "n": 768, "view": 769, "d": 300, "residual": False},
+                  {"label": "odd width residual", "n": 769, "d": 301, "residual": True},
+                  {"label": "odd width plain", "n": 769, "d": 301, "residual": False})
+    for dt in ("f32", "bf16"))
+# The JSON line's rows for the new width: the f32 forms the family runs.
+HM_ROWS = {"residual_layer_norm_d300": "heatmap fusion visual norms f32",
+           "layer_norm_d300": "heatmap fusion class_post_ln f32"}
+REPLACES |= {"residual_layer_norm_d300": REPLACES["residual_layer_norm"],
+             "layer_norm_d300": REPLACES["layer_norm"]}
+SOURCES |= {"residual_layer_norm_d300": SOURCES["residual_layer_norm"],
+            "layer_norm_d300": SOURCES["layer_norm"]}
+HM_TINY_TOL = 1e-4
+
+
+def heatmap_models(torch):
+    """(name, model, watched parameter names) of phase 12, seeded weights
+    on the card: (a) ResnetNao (ResNet-50, heatmap_blocks 3), (b) the same
+    with multivar_n, (c) ScnnNao at the factory widths with kl_div, (d1)
+    HeatmapCrossFusion's defaults (asymmetric, embedding, regroup_gated,
+    extra), (d2) cross_transformer, token_embeddings, regroup; each with
+    noun, verb and TTC heads."""
+    from transfusion_torch.models.heatmap_fusion import HeatmapCrossFusion, HeatmapFusionConfig
+    from transfusion_torch.models.resnet_nao import ResnetNao, ResnetNaoConfig
+    from transfusion_torch.models.scnn import ScnnNao, ScnnNaoConfig
+    from transfusion_torch.weights import init_random_
+
+    heads = dict(noun_classes=HM_NOUNS, verb_classes=HM_VERBS, ttc_pred=True)
+    res = dict(stage_sizes=(3, 4, 6, 3), heatmap_blocks=3, resize_spec=(H, W), **heads)
+    fus = dict(token_dim=HM_TOKEN_DIM, feature_channels=HM_FEAT[3], feature_hw=HM_FEAT[1:3], **heads)
+    trunk = ["conv1.weight", "layer1.0.conv1.weight", "layer3.5.conv3.weight", "heatmap_head.conv1.weight"]
+
+    def upstream(prefix, n, first):
+        return [f"{prefix}.{i}.{p}" for i in range(n) for p in (first, "linear1.weight")]
+
+    specs = [
+        ("resnet_nao", lambda: ResnetNao(ResnetNaoConfig(**res)), trunk + ["noun_classifier.weight"]),
+        ("resnet_nao_multivar", lambda: ResnetNao(ResnetNaoConfig(multivar_n=True, **res)),
+         trunk + ["dist_mlp.weight", "offset_stds"]),
+        ("scnn_nao", lambda: ScnnNao(ScnnNaoConfig(kl_div=True, resize_spec=(H, W), **heads)),
+         ["trunk.ltd_conv.0.weight", "trunk.ppm.project.0.weight", "heatmap_head.conv1.weight",
+          "bottleneck_2.0.block.0.0.weight"]),
+        ("fusion_asymmetric", lambda: HeatmapCrossFusion(HeatmapFusionConfig(**fus)),
+         ["patch_to_token.weight", "hmap_head.linear_2.weight", "class_post_linear.weight"]
+         + upstream("vis_layers", 3, "q_proj.weight") + upstream("lang_layers", 2, "q_proj.weight")),
+        ("fusion_cross_transformer", lambda: HeatmapCrossFusion(HeatmapFusionConfig(
+            fusion_type="cross_transformer", narr_out_mode="token_embeddings", back_to_img_fn="regroup", **fus)),
+         ["patch_to_token.weight", "hmap_head.linear_2.weight", "class_post_linear.weight"]
+         + upstream("layers", 2, "self_attn.in_proj_weight")),
+    ]
+    for name, build, watched in specs:
+        yield name, (lambda build=build: init_random_(build(), seed=0).cuda()), watched
+
+
+def heatmap_inputs(torch, np):
+    """Seeded inputs of phase 12 on the card: images [B, H, W, 3], one box
+    an image with its gaussian and gaussian_dist targets
+    (data/heatmaps.py), noun / verb / TTC targets, trunk features HM_FEAT,
+    a narration vector [B, 1, 300] and narration tokens [B, 64, 300] with
+    half of image 0's padded."""
+    from transfusion_torch.data.heatmaps import get_img_heatmap
+
+    rng = np.random.default_rng(12)
+    x1, y1 = rng.uniform(0, W * 0.6, B), rng.uniform(0, H * 0.6, B)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(W * 0.08, W * 0.4, B), y1 + rng.uniform(H * 0.08, H * 0.4, B)], -1)
+    on = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to("cuda", dt)  # noqa: E731
+    mask = np.ones((B, HM_LANG), np.int32)
+    mask[0, HM_LANG // 2:] = 0
+    return {
+        "image": on(rng.normal(0, 1, (B, H, W, 3)).astype(np.float32)),
+        "gaussian": on(np.stack([get_img_heatmap("gaussian")(b[None], H, W) for b in boxes])),
+        "gaussian_dist": on(np.stack([get_img_heatmap("gaussian_dist")(b[None], H, W) for b in boxes])),
+        "noun": on(rng.integers(1, HM_NOUNS, B), torch.long),
+        "verb": on(rng.integers(0, HM_VERBS, B), torch.long),
+        "ttc": on(rng.uniform(0.2, 2.0, B).astype(np.float32)),
+        "feat": on(rng.normal(0, 1, HM_FEAT).astype(np.float32)),
+        "narration": on(rng.normal(0, 1, (B, 1, HM_TOKEN_DIM)).astype(np.float32)),
+        "tokens": on(rng.normal(0, 1, (B, HM_LANG, HM_TOKEN_DIM)).astype(np.float32)),
+        "mask": on(mask, torch.int32),
+    }
+
+
+def heatmap_loss(torch, name: str, out: dict, inp: dict, gen):
+    """Each model's criterion: (a), (d1), (d2) hmap_criterion mse / mean on
+    the gaussian targets; (b) multivar_n_loss (16 samples, drawn from
+    ``gen`` on the card) on the gaussian_dist targets; (c) kl_div with the
+    criterion's agg sum (config/derive.py:114-117) on the gaussian_dist
+    targets; plus cross entropy on the noun and verb logits and smooth-L1
+    on the TTC."""
+    import torch.nn.functional as F
+
+    from transfusion_torch.train.losses import hmap_criterion, multivar_n_loss, smooth_l1
+
+    if name == "resnet_nao_multivar":
+        hm = multivar_n_loss({"multivar_n": 1, "no_samples": 16})(out["heatmap"], inp["gaussian_dist"], gen)
+    elif name == "scnn_nao":
+        hm = hmap_criterion({"kl_div": 1, "agg": "sum"}, 1)(out["heatmap"], inp["gaussian_dist"])
+    else:
+        hm = hmap_criterion({"mse": 1, "agg": "mean"}, 1)(out["heatmap"], inp["gaussian"])
+    cls = (F.cross_entropy(out["noun_logits"].float(), inp["noun"])
+           + F.cross_entropy(out["verb_logits"].float(), inp["verb"])
+           + smooth_l1(out["ttc"].float() - inp["ttc"], 1.0).mean())
+    return hm + cls, {"heatmap_loss": float(hm.detach()), "class_loss": float(cls.detach())}
+
+
+def phase_heatmap(torch, np, smi: str):
+    """Phase 12: K1 at HM_LN_SHAPES against its plain version (and its
+    backward at the family's two residual shapes), timed beside
+    F.layer_norm and its bound, the flagship's level-0 shapes re-timed;
+    the tiny f32 fusion on the card against the CPU; then each of
+    heatmap_models at B 8, 768x1024: two eval forwards and two train steps
+    (forward, criterion, backward, one RAdam update through
+    train/optim.py::make_optimizer) after a warm-up, launches as
+    HM_EXPECTED predicts, finite outputs and losses, non-zero gradients on
+    the heatmap head and upstream of every K1 norm; eval s, step s, peak
+    GiB. Returns (record, JSON rows of K1 at width 300)."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.text_encoder import DropoutRNG
+    from transfusion_torch.train.optim import make_optimizer
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    check_ln_shapes(torch, g, [s for s in HM_LN_SHAPES if s["n"] in (769, 834) and s["d"] == 300],
+                    "heatmap shapes")
+    ln_times = [time_ln_shape(torch, shape, g) for shape in HM_LN_SHAPES]
+    flagship = [time_ln_shape(torch, {**LN_SHAPES[i], "label": LN_SHAPES[i]["label"] + " (re-read)"}, g)
+                for i in (0, 2)]
+    torch.cuda.empty_cache()
+    rec = {"layer_norm_shapes": ln_times, "flagship_layer_norm": flagship,
+           "tiny_f32": heatmap_tiny_reference(torch, np)}
+    inp = heatmap_inputs(torch, np)
+    opt_cfg = flagship_run_config()["run"]["optimizer"]
+    path_launches: dict = {}
+    for name, build, watched in heatmap_models(torch):
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        model = build()
+        build_s = time.perf_counter() - t0
+        fusion = name.startswith("fusion")
+        lang = (inp["tokens"], inp["mask"]) if name == "fusion_cross_transformer" else (inp["narration"], None)
+
+        def forward(rng=None):
+            if fusion:
+                return model(inp["feat"], *lang, im_size=(H, W), rng=rng)
+            return model(inp["image"], rng=rng)
+
+        torch.cuda.reset_peak_memory_stats()
+        model.eval()
+        with torch.no_grad():
+            forward()
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            eval_s = []
+            for _ in range(HM_REQUESTS):
+                t0 = time.perf_counter()
+                out = forward()
+                torch.cuda.synchronize()
+                eval_s.append(time.perf_counter() - t0)
+        per_forward = {k: v / HM_REQUESTS for k, v in LAUNCHES.items() if v}
+        for k, v in LAUNCHES.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        flat = [v for v in out.values() if torch.is_tensor(v)] + (
+            list(out["heatmap"].values()) if isinstance(out["heatmap"], dict) else [])
+        if not all(torch.isfinite(t).all() for t in flat):
+            raise AssertionError(f"[heatmap {name}] non-finite outputs")
+        hm = out["heatmap"]
+        shape = tuple(hm["loc"].shape) if isinstance(hm, dict) else tuple(hm.shape)
+        if shape != ((B, 2) if isinstance(hm, dict) else (B, H, W)):
+            raise AssertionError(f"[heatmap {name}] heatmap shape {shape}")
+        del out
+
+        model.train()
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        tx, _ = make_optimizer(opt_cfg, None, steps_per_epoch=1)
+        opt_state = tx.init(params)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+
+        def train_step(step: int):
+            nonlocal opt_state
+            model.zero_grad(set_to_none=True)
+            loss, parts = heatmap_loss(torch, name, forward(DropoutRNG("cuda", 42, step)), inp, gen)
+            loss.backward()
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+            norms = {n: float(grads[n].float().norm()) for n in watched}
+            upd, opt_state = tx.update(grads, opt_state, params)
+            with torch.no_grad():
+                torch._foreach_add_(list(params.values()), [upd[n].to(p.dtype) for n, p in params.items()])
+            return float(loss), parts, norms
+
+        train_step(0)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        step_s, losses, norms = [], [], {}
+        for k in range(HM_STEPS):
+            t0 = time.perf_counter()
+            loss, parts, norms = train_step(k + 1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append({"loss": loss, **parts})
+        per_step = {k: v / HM_STEPS for k, v in LAUNCHES.items() if v}
+        for k, v in LAUNCHES.items():
+            path_launches[k] = path_launches.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_params = sum(p.numel() for p in params.values()) / 1e6
+        log(f"[heatmap {name}] {n_params:.1f} M params, built in {build_s:.1f} s; launches a forward "
+            f"{per_forward}, a train step {per_step}")
+        log(f"  eval s {[round(t, 4) for t in eval_s]}, step s {[round(t, 4) for t in step_s]}, peak "
+            f"{peak:.2f} GiB ({held:.2f} held before the build; {smi}); losses "
+            f"{[{k: round(v, 4) for k, v in m.items()} for m in losses]}; |grad| {json.dumps(norms)}")
+        if not all(math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"[heatmap {name}] non-finite loss {losses}")
+        if not all(v > 0.0 for v in norms.values()):
+            raise AssertionError(f"[heatmap {name}] zero gradient: {norms}")
+        if per_forward != HM_EXPECTED[name] or per_step != HM_EXPECTED[name]:
+            raise AssertionError(f"[heatmap {name}] launches a forward {per_forward} and a step {per_step}, "
+                                 f"predicted {HM_EXPECTED[name]}")
+        rec[name] = {"eval_s": eval_s, "step_s": step_s, "peak_gib": peak, "held_gib": held,
+                     "build_s": build_s, "params_m": n_params, "launches_forward": per_forward,
+                     "launches_step": per_step, "losses": losses, "grad_norms": norms, "card": smi}
+        del model, params, opt_state, tx
+    rec["launches"] = path_launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  heatmap phase wall time {rec['phase_s']:.1f} s ({smi})")
+    rows = []
+    for row, label in HM_ROWS.items():
+        s0 = next(s for s in ln_times if s["label"] == label)
+        err = max(s["max_abs_err"] for s in ln_times if s["name"] == s0["name"] and s["d"] == 300)
+        rows.append({k: s0[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                    | {"name": row, "kernel": s0["name"], "max_abs_err": err,
+                       "shapes": [s for s in ln_times if s["name"] == s0["name"]]})
+    return rec, rows
+
+
+def heatmap_tiny_reference(torch, np) -> dict:
+    """A tiny f32 HeatmapCrossFusion (token dim 300 so K1 takes its 300-wide
+    rows; a [2, 8, 12, 64] map, 2 visual and 1 language layers) of each
+    fusion family on the card (TF32 off) against the same weights on the
+    CPU (plain versions), every output within HM_TINY_TOL of its largest
+    magnitude (at least 1); K1 launched on the card."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.models.heatmap_fusion import HeatmapCrossFusion, HeatmapFusionConfig
+    from transfusion_torch.weights import init_random_
+
+    rng = np.random.default_rng(14)
+    feat = torch.from_numpy(rng.normal(0, 1, (2, 8, 12, 64)).astype(np.float32))
+    toks = torch.from_numpy(rng.normal(0, 1, (2, 5, HM_TOKEN_DIM)).astype(np.float32))
+    mask = torch.tensor([[1, 1, 1, 1, 1], [1, 1, 0, 0, 0]], dtype=torch.int32)
+    errs = {}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for fusion in ("asymmetric", "cross_transformer"):
+            cfg = HeatmapFusionConfig(fusion_type=fusion, token_dim=HM_TOKEN_DIM, vis_layers=2, lang_layers=1,
+                                      num_layers=2, feature_channels=64, feature_hw=(8, 12),
+                                      narr_out_mode="embedding" if fusion == "asymmetric" else "token_embeddings",
+                                      noun_classes=7, verb_classes=5, ttc_pred=True)
+            cpu = init_random_(HeatmapCrossFusion(cfg), seed=3).eval()
+            card = HeatmapCrossFusion(cfg).cuda().eval()
+            card.load_state_dict(cpu.state_dict())
+            lang = (toks[:, :1], None) if fusion == "asymmetric" else (toks, mask)
+            with torch.no_grad():
+                want = cpu(feat, *lang, im_size=(32, 48))
+                before = LAUNCHES["residual_layer_norm"]
+                got = card(feat.cuda(), *(None if t is None else t.cuda() for t in lang), im_size=(32, 48))
+                torch.cuda.synchronize()
+            if LAUNCHES["residual_layer_norm"] == before:
+                raise AssertionError(f"[heatmap tiny {fusion}] K1 did not launch")
+            for k, w in want.items():
+                errs[f"{fusion} {k}"] = max_err(got[k].cpu(), w) / max(float(w.abs().max()), 1.0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for k, e in errs.items():
+        check(f"[heatmap tiny f32] {k}", e, HM_TINY_TOL, "max|card - CPU| / max(max|CPU|, 1)")
+    return errs
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3123,6 +3448,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     backbones_rec = phase_backbones(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    heatmap_rec, heatmap_rows = phase_heatmap(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -3143,6 +3471,18 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library "
             f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in heatmap_rows:
+        rows.append({
+            "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]], "replaces": REPLACES[r["name"]],
+            "launches": heatmap_rec["launches"].get(r["kernel"], 0), "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+        records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"], "shapes": r["shapes"]})
+        log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
+            f"{r['plain_ms']:.4f} ms, library "
+            f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {rows[-1]['launches']} launches in phase 12")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -3150,6 +3490,7 @@ def main() -> int:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
                    "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
                    "data_parallel": dp_rec, "tensor_parallel": tp_rec, "backbones": backbones_rec,
+                   "heatmap": heatmap_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

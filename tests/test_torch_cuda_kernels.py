@@ -202,9 +202,32 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
         attn.attention_fwd(q.float(), q.float(), q.float(), dropout_rate=1.0)
 
 
-def test_layer_norm_kernel_refuses_a_width_not_a_multiple_of_8(card):
-    x, w = torch.zeros(3, 100, device=card), torch.ones(100, device=card)
-    with pytest.raises(ValueError, match="multiple of 8"):
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [300, 100, 77, 1023])
+def test_layer_norm_kernel_takes_a_width_not_a_multiple_of_8(card, d, dtype, residual, view):
+    """Widths the 16-byte designs cannot read: 300 (the heatmap fusion's
+    tokens; 8-byte loads in both types), 100 (8-byte loads in both types),
+    77 and 1023 (scalar loads), in both forms, contiguous and as the
+    batch-strided view x[:, :n] of a [B, N, d] whose batch stride is odd in
+    elements where d is (the final norm's read), each launched once."""
+    shape, n = ((3, 37, d), 29) if view else ((1, 333, d), 333)
+    x, r, w, b = _ln_inputs(card, dtype, shape, n, residual, d + n)
+    assert x.is_contiguous() != view
+    kind = "residual_layer_norm" if residual else "layer_norm"
+    before = kernels.LAUNCHES[kind]
+    got = ln.fused_layer_norm(x, w, b, residual=r)
+    want = ln.layer_norm_plain(x.contiguous(), w, b, residual=r)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kind] == before + 1
+    assert got.is_contiguous() and got.shape == x.shape and got.dtype == dtype
+    assert _err(got, want) <= (1e-5 if dtype == torch.float32 else 3.2e-2)
+
+
+def test_layer_norm_kernel_refuses_a_width_over_1024(card):
+    x, w = torch.zeros(3, 1032, device=card), torch.ones(1032, device=card)
+    with pytest.raises(ValueError, match="1 to 1024"):
         ln.fused_layer_norm(x, w, w)
 
 

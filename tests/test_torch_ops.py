@@ -337,8 +337,8 @@ def _port_files():
 
 
 # The trainer slice's, the fusion options', the towers' and TTC head's, the
-# data-parallel slice's, the model axis's and the other backbones' modules,
-# each of which the scan must reach.
+# data-parallel slice's, the model axis's, the other backbones' and the
+# heatmap family's modules, each of which the scan must reach.
 TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", "data/labels.py",
                    "data/annotations.py", "data/splits.py", "data/transforms.py",
                    "data/dataset.py", "data/loader.py", "models/transfusion.py", "models/fusion.py",
@@ -348,7 +348,9 @@ TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", 
                    "models/lm_encoders.py", "models/ttc_head.py", "data/hand_pose.py", "data/glove.py",
                    "parallel/mesh.py", "parallel/fsdp.py", "ops/batch_norm.py",
                    "parallel/tensor_parallel.py", "models/mobilenet.py", "models/dual_stream.py",
-                   "data/readers.py")
+                   "data/readers.py", "models/misc_layers.py", "models/resnet_nao.py", "models/scnn.py",
+                   "models/heatmap_fusion.py", "data/heatmaps.py", "data/snao.py", "data/epic_nao.py",
+                   "metrics/hmap_metrics.py")
 
 
 def test_port_imports_no_jax():

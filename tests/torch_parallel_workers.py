@@ -95,15 +95,16 @@ def trainer_record(trainer) -> dict:
 
 def fit_rank(rank: int, world: int, port: int, out: str) -> None:
     """One epoch of ``tiny_run_config`` (train, validation with 64
-    test-time proposals an image, checkpoint), data-parallel in ``out/dp``
-    and fully sharded in ``out/fsdp``."""
+    test-time proposals an image, checkpoint) with the model in float64
+    (``_tp_trainer``'s ``f64``), data-parallel in ``out/dp`` and fully
+    sharded in ``out/fsdp``."""
     from transfusion_torch.parallel import mesh
 
     _join(rank, world, port)
     try:
         for mode in ("dp", "fsdp"):
             trainer = _tp_trainer(tiny_run_config(mode == "fsdp"), os.path.join(out, mode),
-                                  device="cpu", data=tiny_data())
+                                  device="cpu", data=tiny_data(), f64=True)
             trainer.fit(1)
             record = trainer_record(trainer)
             record["local_opt_numel"] = sum(v.numel()

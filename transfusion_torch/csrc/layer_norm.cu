@@ -36,7 +36,15 @@
 //   The ring serves the fixed widths only. It takes the residual form and
 //   a plain input of kRingMinRows rows or more: below that a plain input
 //   is under one wave of rows blocks, whose loads all go out at once. The
-//   generic width takes the rows design. scripts/ab_layer_norm.py builds
+//   generic width (any other multiple of 8) takes the rows design.
+// - Any width from 1 to 1024 that the 16-byte designs cannot read (not a
+//   multiple of 8, or a pointer or batch stride not 16-byte aligned, as
+//   the 300-wide rows of the heatmap fusion's tokens: 600 bytes a bf16 row)
+//   takes layer_norm_any: a warp a row, each lane holding its share in
+//   registers as f32, read in place with 8-byte loads where the row pitch,
+//   the pointers and the batch stride allow it (d % 4 == 0 in bf16, d % 2
+//   == 0 in f32) and with scalar loads otherwise; w and b read through the
+//   read-only cache. Its rows are short, so launch and drain bound it. scripts/ab_layer_norm.py builds
 //   copies with K1_DESIGN defined as 1 (rows) or 2 (ring) to time either
 //   design at every shape.
 // - x may be a batch-strided view: row i lies at x + (i / rows_per_batch) *
@@ -355,6 +363,111 @@ layer_norm_ring(const T* __restrict__ x, const T* __restrict__ r, const float* _
   }
 }
 
+// ------------------------------------------------------ any-width design
+// One value of T to and from float (bf16 by the intrinsics).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(v);
+  else return v;
+}
+
+// kE values of T at p (one 8-byte access for kE > 1), widened to floats.
+template <typename T, int kE>
+__device__ __forceinline__ void load_any(const T* p, float (&f)[kE]) {
+  if constexpr (kE == 1) {
+    f[0] = to_f(__ldcs(p));
+  } else if constexpr (sizeof(T) == 2) {
+    static_assert(kE == 4, "bf16 takes 4 values an access");
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = c.x;
+    f[3] = c.y;
+  } else {
+    static_assert(kE == 2, "f32 takes 2 values an access");
+    const float2 u = __ldcs(reinterpret_cast<const float2*>(p));
+    f[0] = u.x;
+    f[1] = u.y;
+  }
+}
+
+template <typename T, int kE>
+__device__ __forceinline__ void store_any(T* p, const float (&f)[kE]) {
+  if constexpr (kE == 1) {
+    *p = from_f<T>(f[0]);
+  } else if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 c = __floats2bfloat162_rn(f[2], f[3]);
+    *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                                              *reinterpret_cast<const uint32_t*>(&c));
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
+  }
+}
+
+// A float rounded to T and back: the residual sum in the input dtype.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+template <typename T, int kE, bool kRes>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_any(const T* __restrict__ x, const T* __restrict__ r, const float* __restrict__ w,
+               const float* __restrict__ b, T* __restrict__ out, int rows, int d, int rows_per_batch,
+               long long batch_stride, float eps) {
+  constexpr int kIt = kMaxD / (32 * kE);  // accesses a lane at the widest row
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;  // a warp is one row, so the whole warp leaves
+  const int nv = d / kE;
+  const T* xr = x + x_offset(row, rows_per_batch, batch_stride, d);
+  const T* rr = kRes ? r + (size_t)row * d : nullptr;
+  float v[kIt][kE];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int q = lane + i * 32;
+    if (q < nv) {
+      load_any<T, kE>(xr + q * kE, v[i]);
+      if (kRes) {
+        float rv[kE];
+        load_any<T, kE>(rr + q * kE, rv);
+#pragma unroll
+        for (int j = 0; j < kE; ++j) v[i][j] = round_to<T>(v[i][j] + rv[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < kE; ++j) {
+        sum += v[i][j];
+        sq = fmaf(v[i][j], v[i][j], sq);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  const float mean = sum / (float)d;
+  const float var = fmaxf(sq / (float)d - mean * mean, 0.f);
+  const float rstd = rsqrtf(var + eps);
+  T* orow = out + (size_t)row * d;
+#pragma unroll
+  for (int i = 0; i < kIt; ++i) {
+    const int q = lane + i * 32;
+    if (q < nv) {
+      float y[kE];
+#pragma unroll
+      for (int j = 0; j < kE; ++j) y[j] = (v[i][j] - mean) * rstd * __ldg(w + q * kE + j) + __ldg(b + q * kE + j);
+      store_any<T, kE>(orow + q * kE, y);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 struct Args {
   const void *x, *r, *w, *b;
@@ -417,24 +530,46 @@ int launch_fixed(const Args& a) {
   else return a.rows >= kRingMinRows ? launch_ring<T, D, kRes>(a) : launch_rows<T, D, kRes>(a);
 }
 
+template <typename T, int kE, bool kRes>
+int launch_any(const Args& a) {
+  constexpr int per_block = kThreads / 32;
+  layer_norm_any<T, kE, kRes><<<(a.rows + per_block - 1) / per_block, kThreads, 0, a.stream>>>(
+      (const T*)a.x, (const T*)a.r, (const float*)a.w, (const float*)a.b, (T*)a.out, a.rows, a.d,
+      a.rows_per_batch, a.batch_stride, a.eps);
+  return (int)cudaGetLastError();
+}
+
+// True when every pointer of `a` and the batch stride (in bytes) are
+// multiples of `align`.
+bool aligned_to(const Args& a, size_t elt, size_t align) {
+  return ((uintptr_t)a.x | (uintptr_t)a.r | (uintptr_t)a.out | (uintptr_t)a.w | (uintptr_t)a.b) % align == 0 &&
+         ((size_t)a.batch_stride * elt) % align == 0;
+}
+
 template <typename T, bool kRes>
 int launch(const Args& a) {
-  if (a.d == 896) return launch_fixed<T, 896, kRes>(a);
-  if (a.d == 384) return launch_fixed<T, 384, kRes>(a);
-  return launch_rows<T, 0, kRes>(a);
+  if (a.d % 8 == 0 && aligned_to(a, sizeof(T), 16)) {
+    if (a.d == 896) return launch_fixed<T, 896, kRes>(a);
+    if (a.d == 384) return launch_fixed<T, 384, kRes>(a);
+    return launch_rows<T, 0, kRes>(a);
+  }
+  constexpr int kE = 8 / sizeof(T);  // values in one 8-byte access
+  if (a.d % kE == 0 && aligned_to(a, sizeof(T), 8)) return launch_any<T, kE, kRes>(a);
+  return launch_any<T, 1, kRes>(a);
 }
 
 }  // namespace
 
 // x rows as above (rows_per_batch divides rows; batch_stride in elements),
-// residual (or NULL) and out contiguous [rows, d].
+// residual (or NULL) and out contiguous [rows, d]; any d from 1 to 1024,
+// pointers aligned to their element.
 extern "C" int tf_layer_norm(const void* x, const void* r, const void* w, const void* b, void* out, int rows,
                              int d, int rows_per_batch, long long batch_stride, float eps, int is_bf16,
                              void* stream) {
   const size_t elt = is_bf16 ? 2 : 4;
-  const bool aligned = ((uintptr_t)x | (uintptr_t)r | (uintptr_t)out | (uintptr_t)w | (uintptr_t)b) % 16 == 0 &&
-                       (batch_stride * elt) % 16 == 0;
-  if (d <= 0 || d > kMaxD || d % 8 != 0 || rows <= 0 || rows_per_batch <= 0 || rows % rows_per_batch != 0 ||
+  const bool aligned = ((uintptr_t)x | (uintptr_t)r | (uintptr_t)out) % elt == 0 &&
+                       ((uintptr_t)w | (uintptr_t)b) % 4 == 0;
+  if (d <= 0 || d > kMaxD || rows <= 0 || rows_per_batch <= 0 || rows % rows_per_batch != 0 ||
       batch_stride < 0 || !aligned)
     return (int)cudaErrorInvalidValue;
   const Args a{x, r, w, b, out, rows, d, rows_per_batch, batch_stride, eps, (cudaStream_t)stream};

@@ -7,9 +7,12 @@ eps 1e-6 by default, f32 affine, output in the input dtype. The residual form
 LN(x + r) rounds the sum to the input dtype before the statistics, as the TPU
 kernel does.
 
-On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``,
-which reads ``x`` in place when its rows are contiguous within each batch
-(:func:`row_layout`: a contiguous tensor, or a view such as ``x[:, :n]``);
+On a CUDA tensor :func:`fused_layer_norm` launches ``csrc/layer_norm.cu``
+at any width from 1 to 1024 (16-byte designs where the width is a multiple
+of 8 and the pointers allow it, else a warp a row with 8-byte or scalar
+loads), which reads ``x`` in place when its rows are contiguous within each
+batch (:func:`row_layout`: a contiguous tensor, or a view such as
+``x[:, :n]``);
 on a CPU tensor it runs :func:`layer_norm_plain`. The kernel has no
 backward, so it refuses a CUDA input that requires grad while grad mode is
 on. :func:`layer_norm` is the differentiable form, JAX's ``custom_vjp``
@@ -63,24 +66,19 @@ def _layer_norm_cuda(x, weight, bias, eps, residual):
         raise RuntimeError("fused_layer_norm: the LayerNorm kernel has no backward; train through "
                            "layer_norm (FusedLayerNorm does)")
     kernels.require(x.dtype in (torch.float32, torch.bfloat16), f"layer_norm: dtype {x.dtype}")
-    kernels.require(0 < d <= 1024 and d % 8 == 0, "layer_norm: the last dim must be a multiple of 8, <= 1024")
+    kernels.require(0 < d <= 1024, "layer_norm: the last dim must be 1 to 1024")
     layout = row_layout(x)
     kernels.require(layout is not None, "layer_norm: x must hold contiguous rows within each batch")
     rows_per_batch, batch_stride = layout
-    kernels.require(x.data_ptr() % 16 == 0 and batch_stride * x.element_size() % 16 == 0,
-                    "layer_norm: x and its batch stride must be 16-byte aligned")
     kernels.require(weight.shape == (d,) and bias.shape == (d,), "layer_norm: affine shape")
     kernels.require(weight.dtype == torch.float32 and bias.dtype == torch.float32,
                     "layer_norm: affine params must be float32")
     kernels.require(weight.device == x.device and bias.device == x.device, "layer_norm: devices differ")
     if residual is not None:
         kernels.require(residual.shape == x.shape and residual.dtype == x.dtype
-                        and residual.is_contiguous() and residual.device == x.device
-                        and residual.data_ptr() % 16 == 0,
+                        and residual.is_contiguous() and residual.device == x.device,
                         "layer_norm: residual must match x and be contiguous")
     w, b = weight.contiguous(), bias.contiguous()
-    kernels.require(w.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
-                    "layer_norm: affine params must be 16-byte aligned")
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     rows = x.numel() // d
     code = kernels.library().tf_layer_norm(

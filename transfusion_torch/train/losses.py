@@ -1,10 +1,10 @@
 """Training losses with static shapes (port of
-``transfusion_tpu/train/losses.py:24-177``): smooth-L1 box loss (beta 1/9),
+``transfusion_tpu/train/losses.py:24-291``): smooth-L1 box loss (beta 1/9),
 the torchvision RPN loss over a fixed per-image sample, the
 class-weighted cross entropies of the reference trainer, the linear and
-transformer TTC heads' smooth-L1 and the LM head's cross entropy. Every
-function
-takes validity masks: padded rows (label -1) drop out of the sums with the
+transformer TTC heads' smooth-L1, the LM head's cross entropy, and the
+legacy heatmap family's criteria (``hmap_criterion``, ``multivar_n_loss``).
+Every detector loss takes validity masks: padded rows (label -1) drop out of the sums with the
 normalisations the dynamic-shape reference computes. The RPN sampler takes
 its uniform keys as ``draws`` (see :mod:`transfusion_torch.ops.matcher`).
 
@@ -165,3 +165,126 @@ def build_class_weights(noun_weights, verb_weights, bg_weight: float, verb_bg: b
         n[0] = n.mean()
         v = np.append(v, v.mean())
     return (torch.from_numpy(n.astype(np.float32)), torch.from_numpy(v.astype(np.float32)))
+
+
+# --------------------------------------------------- the legacy heatmap family
+def hmap_criterion(criterion: dict, pixel_w):
+    """Heatmap loss factory of the legacy snao family (``get_hmap_criterion``
+    + ``w_loss``, runner/metrics_losses/losses.py:25-42,69-98; port of
+    ``transfusion_tpu/train/losses.py::hmap_criterion``).
+
+    Returns ``fn(preds, targets, fg_perc=None, bg_perc=None) -> scalar`` in
+    f32. The first of mae, smooth_mae, mse, ce / focal (both
+    BCE-with-logits, as the reference builds them), kl_div present in
+    ``criterion`` picks the elementwise loss (mae when none is). ``pixel_w``
+    reweights foreground (target > 0) against background pixels: a scalar
+    ``w`` as fg 1 - 1/(1+w), bg 1/(1+w); ``"reg"`` by the per-sample
+    (1 - fg_perc) and (1 - bg_perc). ``agg == "sum"`` sums each image's
+    pixels and means over the batch; anything else is a plain mean.
+    ``kl_div`` is torch's ``KLDivLoss`` elementwise, ``target * (log(target)
+    - pred)`` with ``pred`` log-probabilities, 0 where target == 0."""
+    agg = criterion.get("agg", "mean")
+
+    if criterion.get("mae", 0):
+        def base(p, t):
+            return (p - t).abs()
+    elif criterion.get("smooth_mae", 0):
+        def base(p, t):
+            return smooth_l1(p - t, 1.0)
+    elif "mse" in criterion:
+        def base(p, t):
+            return (p - t) ** 2
+    elif "ce" in criterion or "focal" in criterion:
+        def base(p, t):
+            return torch.clamp(p, min=0) - p * t + torch.log1p(torch.exp(-p.abs()))
+    elif "kl_div" in criterion:
+        def base(p, t):
+            pos = t > 0
+            return torch.where(pos, t * (torch.log(torch.where(pos, t, 1.0)) - p), 0.0)
+    else:
+        def base(p, t):
+            return (p - t).abs()
+
+    weighted = pixel_w != 1
+    if weighted and pixel_w != "reg":
+        fg_w, bg_w = 1.0 - 1.0 / (1.0 + pixel_w), 1.0 / (1.0 + pixel_w)
+
+    def apply(preds, targets, fg_perc=None, bg_perc=None):
+        bs = preds.shape[0]
+        losses = base(preds.float(), targets.float()).reshape(bs, -1)
+        fg = targets.reshape(bs, -1) > 0
+        if pixel_w == "reg":
+            losses = torch.where(fg, losses * (1.0 - fg_perc.float())[:, None],
+                                 losses * (1.0 - bg_perc.float())[:, None])
+        elif weighted:
+            losses = torch.where(fg, losses * fg_w, losses * bg_w)
+        if agg == "sum":
+            return losses.sum(-1).mean()
+        return losses.mean()
+
+    return apply
+
+
+def heatmap_uniforms(shape, generator: torch.Generator, device=None):
+    """Uniforms in [1e-12, 1) as ``jax.random.uniform(key, shape,
+    minval=1e-12, maxval=1.0)`` spreads them (in f32 the width 1 - 1e-12 is
+    1), drawn from ``generator`` on its device."""
+    u = torch.rand(shape, generator=generator, device=device or generator.device)
+    return torch.clamp(u + 1e-12, min=1e-12)
+
+
+def sample_heatmap_coords(gt_heatmap, no_samples: int, generator: torch.Generator | None = None,
+                          uniforms=None):
+    """``no_samples`` distinct pixels a heatmap [B, H, W] weighted by its
+    mass, without replacement (the Gumbel-top-k trick: keys log(mass) +
+    Gumbel noise, zero-mass pixels at -inf), mapped to the multivar frame:
+    y to [-MAX_STD*h/w, MAX_STD*h/w], x to [-MAX_STD, MAX_STD]. Returns
+    [B, no_samples, 2] as (y, x). The noise comes from ``uniforms`` [B, H*W]
+    (as ``jax.random.uniform`` draws them) or from ``generator``. Equal keys
+    go to the lower pixel index first, as ``lax.top_k`` takes them: a
+    stable descending sort (an image with fewer nonzero pixels than
+    ``no_samples`` fills its tail with the lowest zero-mass indices)."""
+    from transfusion_torch.data.heatmaps import MAX_STD
+
+    b, h, w = gt_heatmap.shape
+    flat = gt_heatmap.reshape(b, h * w).float()
+    logw = torch.where(flat > 0, torch.log(torch.clamp(flat, min=1e-30)), -torch.inf)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("sample_heatmap_coords draws from a torch.Generator: pass generator or uniforms")
+        uniforms = heatmap_uniforms(flat.shape, generator, flat.device)
+    gumbel = -torch.log(-torch.log(uniforms.to(flat.device, torch.float32)))
+    idx = torch.sort(logw + gumbel, dim=-1, descending=True, stable=True).indices[:, :no_samples]
+    ys = torch.div(idx, w, rounding_mode="floor").float()
+    xs = (idx % w).float()
+    sy = h / w
+    ys = ys / h * (2 * MAX_STD * sy) - MAX_STD * sy
+    xs = xs / w * (2 * MAX_STD) - MAX_STD
+    return torch.stack([ys, xs], dim=-1)
+
+
+def mvn_nll(loc, scale_tril, samples):
+    """Mean negative log-likelihood of ``samples`` [B, S, 2] under the 2-D
+    Gaussian N(loc, L L^T), the 2x2 lower-triangular solve written out."""
+    d = (samples - loc[:, None, :]).float()
+    l00, l10, l11 = (scale_tril[:, i, j][:, None].float() for i, j in ((0, 0), (1, 0), (1, 1)))
+    z0 = d[..., 0] / l00
+    z1 = (d[..., 1] - l10 * z0) / l11
+    logdet = torch.log(l00.abs()) + torch.log(l11.abs())
+    logp = -0.5 * (z0 ** 2 + z1 ** 2) - logdet - float(np.log(2 * np.pi))
+    return -logp.mean()
+
+
+def multivar_n_loss(criterion: dict):
+    """``multivar_n_loss`` (runner/metrics_losses/losses.py:44-63): draw
+    ``criterion["no_samples"]`` heatmap-weighted coordinates and score them
+    under the predicted Gaussian ``dist`` ({"loc", "scale_tril"}, the
+    model's output under ``multivar_n``). Returns ``fn(dist, gt_heatmap,
+    generator=None, uniforms=None)``."""
+    no_samples = criterion["no_samples"]
+
+    def loss(dist, gt_heatmap, generator=None, uniforms=None):
+        samples = sample_heatmap_coords(gt_heatmap, no_samples, generator, uniforms)
+        return mvn_nll(dist["loc"], dist["scale_tril"], samples)
+
+    return loss

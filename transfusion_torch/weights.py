@@ -16,7 +16,10 @@ column order (y, x, c) -> (c, y, x), the back-projection fold order
 (ph, pw, C) -> (C, ph, pw) (rows and bias), and the split q/k/v projections
 -> the packed ``in_proj_weight``/``in_proj_bias``.
 :func:`radam_state_from_jax` carries an optax RAdam state (its moments
-through the same mapping) into the port's optimizer state.
+through the same mapping) into the port's optimizer state. The legacy
+heatmap family's models cross with :func:`resnet_nao_state_dict_from_jax`,
+:func:`scnn_state_dict_from_jax` and
+:func:`heatmap_fusion_state_dict_from_jax`.
 """
 
 from __future__ import annotations
@@ -64,6 +67,20 @@ def _bottleneck(base: str, node: dict, out: dict):
             _conv_norm(out, f"{base}.conv{i}", f"{base}.bn{i}", cn)
 
 
+def _inverted_residual(base: str, node: dict, out: dict):
+    """A JAX InvertedResidual (expand, depthwise, se, project, each where
+    present) at ``{base}.block.{j}``."""
+    parts = [p for p in ("expand", "depthwise", "se", "project") if p in node]
+    for j, part in enumerate(parts):
+        sub = f"{base}.block.{j}"
+        if part == "se":
+            for fc in ("fc1", "fc2"):
+                out[f"{sub}.{fc}.weight"] = _conv(node["se"][fc]["kernel"])
+                out[f"{sub}.{fc}.bias"] = np.asarray(node["se"][fc]["bias"])
+        else:
+            _conv_norm(out, f"{sub}.0", f"{sub}.1", node[part])
+
+
 def _mobilenet(bb: dict, out: dict, body: str):
     """MobileNetV3Features: the stem at ``{body}.0``, block ``block_i`` at
     ``{body}.{i + 1}.block.{j}`` (expand, depthwise, se, project in that
@@ -79,17 +96,8 @@ def _mobilenet(bb: dict, out: dict, body: str):
         if not m:
             raise KeyError(f"unexpected MobileNet param {name}")
         i = int(m.group(1))
-        if i >= BUILT_BLOCKS:
-            continue
-        parts = [p for p in ("expand", "depthwise", "se", "project") if p in node]
-        for j, part in enumerate(parts):
-            base = f"{body}.{i + 1}.block.{j}"
-            if part == "se":
-                for fc in ("fc1", "fc2"):
-                    out[f"{base}.{fc}.weight"] = _conv(node["se"][fc]["kernel"])
-                    out[f"{base}.{fc}.bias"] = np.asarray(node["se"][fc]["bias"])
-            else:
-                _conv_norm(out, f"{base}.0", f"{base}.1", node[part])
+        if i < BUILT_BLOCKS:
+            _inverted_residual(f"{body}.{i + 1}", node, out)
 
 
 def _backbone(bb: dict, out: dict, body: str = "backbone.body"):
@@ -150,8 +158,92 @@ def resnet_state_dict_from_jax(params: dict, batch_stats: dict | None = None) ->
     the state dict of the port's body (f32 tensors)."""
     out: dict = {}
     _backbone(_merge(params, batch_stats or {}), out, body="")
-    return {k.removeprefix("."): torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+    return _tensors(out)
+
+
+def _tensors(out: dict) -> dict:
+    return {k.removeprefix("."): torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _nao_heads(params: dict, out: dict):
+    """The heads JAX's ResnetNao, ScnnNao and HeatmapCrossFusion share:
+    ``heatmap_head`` (two convs), ``dist_mlp`` and ``offset_stds``, the
+    noun / verb / TTC Dense layers; the names are kept."""
+    if "heatmap_head" in params:
+        for c in ("conv1", "conv2"):
+            node = params["heatmap_head"][c]
+            out[f"heatmap_head.{c}.weight"] = _conv(node["kernel"])
+            out[f"heatmap_head.{c}.bias"] = np.asarray(node["bias"])
+    for name in ("dist_mlp", "noun_classifier", "verb_classifier", "ttc_predictor"):
+        if name in params:
+            _dense(out, name, params[name])
+    if "offset_stds" in params:
+        out["offset_stds"] = np.asarray(params["offset_stds"])
+
+
+def resnet_nao_state_dict_from_jax(params: dict) -> dict:
+    """A JAX ``ResnetNao``'s params -> the port's state dict: the trunk at
+    torchvision's names (``conv1``, ``bn1``, ``layerN.i.*``, as the
+    reference's ResnetWrapper holds a torchvision ResNet), the heads at
+    JAX's."""
+    out: dict = {}
+    _backbone({k: v for k, v in params.items() if k == "stem" or re.fullmatch(r"layer\d_\d+", k)}, out,
+              body="")
+    _nao_heads(params, out)
+    return _tensors(out)
+
+
+def scnn_state_dict_from_jax(params: dict) -> dict:
+    """A JAX ``ScnnNao``'s params -> the port's state dict (JAX's names;
+    the reference's Fast-SCNN module is not in its tree): ConvBNs at
+    ``.0`` / ``.1``, DSConv's ``depthwise`` / ``pointwise``, a stack's
+    ``{name}_{b}`` at ``{name}.{b}`` with its parts at ``.block.{j}``."""
+    out: dict = {}
+    for name, node in params["trunk"].items():
+        base = f"trunk.{name}"
+        if name in ("ltd_ds1", "ltd_ds2"):
+            for part in ("depthwise", "pointwise"):
+                _conv_norm(out, f"{base}.{part}.0", f"{base}.{part}.1", node[part])
+        elif name == "ppm":
+            for sub, cn in node.items():
+                _conv_norm(out, f"{base}.{sub}.0", f"{base}.{sub}.1", cn)
+        elif m := re.fullmatch(r"(gfe\d)_(\d+)", name):
+            _inverted_residual(f"trunk.{m.group(1)}.{m.group(2)}", node, out)
+        else:
+            _conv_norm(out, f"{base}.0", f"{base}.1", node)
+    for name, node in params.items():
+        if m := re.fullmatch(r"(bottleneck_\d)_(\d+)", name):
+            _inverted_residual(f"{m.group(1)}.{m.group(2)}", node, out)
+    _nao_heads(params, out)
+    return _tensors(out)
+
+
+def heatmap_fusion_state_dict_from_jax(params: dict) -> dict:
+    """A JAX ``HeatmapCrossFusion``'s params -> the port's state dict: the
+    kind embeddings at the reference's ``image_kind_embedding`` /
+    ``lang_kind_embedding``, encoder layers at torch's
+    ``TransformerEncoderLayer`` names (q/k/v packed into ``in_proj``), the
+    QKV layers' and the rest at JAX's (``layer_i`` / ``vis_i`` /
+    ``lang_i`` at ``layers.i`` / ``vis_layers.i`` / ``lang_layers.i``)."""
+    out: dict = {"patch_to_token.weight": _conv(params["patch_to_token"]["kernel"])}
+    for name in ("heatmap_token", "class_token"):
+        if name in params:
+            out[name] = np.asarray(params[name])
+    out["image_kind_embedding"] = np.asarray(params["image_kind"])
+    out["lang_kind_embedding"] = np.asarray(params["lang_kind"])
+    _pos("", params, out)
+    for j, lay in _layers("layer", params):
+        _encoder_layer(f"layers.{j}", lay, out)
+    for stream in ("vis", "lang"):
+        for j, lay in _layers(stream, params):
+            _qkv_layer(f"{stream}_layers.{j}", lay, out)
+    for name, node in params["hmap_head"].items():
+        _dense(out, f"hmap_head.{name}", node)
+    if "class_post_linear" in params:
+        _dense(out, "class_post_linear", params["class_post_linear"])
+        _norm(out, "class_post_ln", params["class_post_ln"])
+    _nao_heads(params, out)
+    return _tensors(out)
 
 
 def _rcnn(rcnn: dict, out: dict):
@@ -317,11 +409,15 @@ def _fusion(i: int, level: dict, out: dict):
         _encoder_layer(f"{enc}.t_encoder.layers.{j}", lay, out)
     for stream in ("vis", "lang"):  # asymmetric
         for j, lay in _layers(stream, level):
-            base = f"{enc}.{stream}_layers.{j}"
-            for p in ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2"):
-                _dense(out, f"{base}.{p}", lay[p])
-            for p in ("norm1", "norm2"):
-                _norm(out, f"{base}.{p}", lay[p])
+            _qkv_layer(f"{enc}.{stream}_layers.{j}", lay, out)
+
+
+def _qkv_layer(base: str, lay: dict, out: dict):
+    """A QKVEncoderLayer: its Dense layers and flax norms, names kept."""
+    for p in ("q_proj", "k_proj", "v_proj", "out_proj", "linear1", "linear2"):
+        _dense(out, f"{base}.{p}", lay[p])
+    for p in ("norm1", "norm2"):
+        _norm(out, f"{base}.{p}", lay[p])
 
 
 def _vis_fusion(i: int, node: dict, out: dict):
@@ -456,7 +552,9 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     and copied to the model's device: fan-in scaled normal weights, zero
     biases, identity frozen BN, LayerNorms and RMSNorms, unit-normal kind
     embeddings, learned positions, T5 position-bias tables and TTC-head
-    encodings and CLS token, type embeddings normal(1 / init_div), zero
+    encodings and CLS token, the heatmap fusion's heatmap and class tokens,
+    ones for the multivar head's offset_stds, type embeddings normal(1 /
+    init_div), zero
     ``zero`` positions (the JAX inits), 0.02-normal token and position
     embeddings of the towers, 0.01-normal RoI predictors. A model split over
     a model axis draws each whole tensor and keeps its slice, so every rank
@@ -474,12 +572,12 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
         shape = split.whole_shapes.get(name, t.shape) if split is not None else t.shape
         if name.endswith(("running_mean", "table")):
             val = torch.zeros(shape) if name.endswith("running_mean") else None
-        elif name.endswith("running_var"):
+        elif name.endswith(("running_var", "offset_stds")):
             val = torch.ones(shape)
         elif name.endswith("pos.pos_embedding"):
             learned = model.get_submodule(name.removesuffix(".pos_embedding")).kind == "learned"
             val = torch.randn(shape, generator=gen) if learned else torch.zeros(shape)
-        elif name.endswith(("kind_embedding", "_enc", "cls_token")):
+        elif name.endswith(("kind_embedding", "_enc", "cls_token", "heatmap_token", "class_token")):
             val = torch.randn(shape, generator=gen)
         elif ".type_embeddings." in name:
             div = model.get_submodule(name.split(".type_embeddings.")[0]).type_embedding_init_div
