@@ -139,7 +139,20 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    a warm-up, launches as HM_EXPECTED predicts (K1 10 / 1 and 4 / 1 a
    forward for (d1) / (d2), none for (a)-(c)), finite outputs and losses,
    non-zero gradients on the heatmap head and upstream of every K1 norm;
-   eval s, step s and peak GiB beside the card's name and power limit.
+   eval s, step s and peak GiB beside the card's name and power limit;
+13. the offline tools: ``label_extraction.main(["extract", ...])`` with no
+   ``--device`` at B 8 over 16 seeded JPEG frames at 1080x1440 (the eval
+   transform rescales them to the 768x1024 bucket), its detector built from
+   ``flagship_run_config()`` written as YAML over an annotations-only Ego4D
+   v2 tree, once at threshold 0 and once at the default 0.4: every CSV row
+   and every detection bit for bit against the port's ``make_eval_step``
+   on the same transformed batch, K1 / K2 / K5 launches as TOOL_EXPECTED
+   predicts, decode / transform / device ms a batch; ``label`` on the
+   first CSV against ``label_video`` in this process; one extract batch
+   under ``utils.profiling.trace``, whose Chrome trace must name K2's and
+   K5's kernels; the native STA matcher built and its mAP of phase 6's
+   result JSON equal to the numpy matcher's within 1e-12; whether phase
+   6's fit wrote its plot.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -3387,6 +3400,311 @@ def heatmap_tiny_reference(torch, np) -> dict:
     return errs
 
 
+# ------------------------------------------------- phase 13: the offline tools
+# The label-extraction tool (``python -m transfusion_torch.tools.label_extraction``)
+# at flagship width: ``extract`` builds the detector from flagship_run_config()
+# written as its three YAML tiers (EgoNaoTrainer over an annotations-only Ego4D
+# v2 tree: 87 nouns, 74 verbs, no frames; seeded weights) and sweeps
+# TOOL_FRAMES seeded JPEG frames at TOOL_HW in batches of B through
+# make_detect_fn on the card; ``label`` matches the detections against a
+# seeded annotations pickle. Each extract batch runs the eval forward once.
+TOOL_FRAMES, TOOL_HW, TOOL_VIDEO = 16, (1080, 1440), "toolvid-0000"
+TOOL_THRESHOLDS = (0.0, None)  # one run keeping every valid detection, one at the default 0.4
+TOOL_EXPECTED = {k: v * (TOOL_FRAMES // B) for k, v in EXPECTED_PER_FORWARD.items()}  # an extract run
+TOOL_TRACE = ("attn_fwd_sm90", "roi_align_fwd", "extract_batch")  # K2's and K5's symbols, the region
+NATIVE_TOL = 1e-12
+
+
+def tool_inputs(np, root: str) -> dict:
+    """The tool's inputs under ``root``: seeded frames, the label file (the
+    class names of the trainer's generated noun ids), the YAML tiers, the
+    annotations tree ($DATA), the narration annotations pickle and the
+    soft matches."""
+    import pandas as pd
+    import yaml
+    from PIL import Image
+
+    from transfusion_torch.data.annotations import V2_NOUN_OVERRIDES
+
+    rng = np.random.default_rng(13)
+    h, w = TOOL_HW
+    frames = os.path.join(root, "frames")
+    os.makedirs(frames)
+    ids = [30 * (k + 1) for k in range(TOOL_FRAMES)]
+    for f in ids:
+        # Smooth colour fields with a few solid boxes: a camera frame's JPEG size, not noise's.
+        img = np.asarray(Image.fromarray(rng.integers(0, 256, (9, 12, 3), dtype=np.uint8)).resize(
+            (w, h), Image.BILINEAR)).copy()
+        for _ in range(4):
+            bh, bw = int(rng.integers(h // 18, h // 4)), int(rng.integers(w // 24, w // 5))
+            y, x = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+            img[y:y + bh, x:x + bw] = rng.integers(0, 256, 3)
+        Image.fromarray(img).save(os.path.join(frames, f"{TOOL_VIDEO}_{f:07d}.jpg"), quality=90)
+
+    names = [f"obj{i:02d}" for i in range(87)]
+    verbs = [f"act{i:02d}" for i in range(74)]
+    vids = ["toolclip-0", "toolclip-1"]
+    ann_dir = os.path.join(root, "data", "Ego4d", "v2", "annotations")
+    os.makedirs(ann_dir)
+    for subset, n, start in (("train", 87, 1000), ("val", B, 9000)):
+        anns = []
+        for k in range(n):
+            x, y = float(rng.uniform(0, 0.6) * w), float(rng.uniform(0, 0.6) * h)
+            anns.append({"uid": f"{vids[k % 2]}_{start + 30 * k:07d}", "video_uid": vids[k % 2],
+                         "frame": start + 30 * k, "clip_id": k % 2,
+                         "objects": [{"box": [x, y, x + 0.2 * w, y + 0.2 * h], "noun_category_id": k % 87,
+                                      "verb_category_id": k % 74, "time_to_contact": 0.5}]})
+        with open(os.path.join(ann_dir, f"fho_sta_{subset}.json"), "w") as f:
+            json.dump({"noun_categories": [{"id": i, "name": s} for i, s in enumerate(names)],
+                       "verb_categories": [{"id": i, "name": s} for i, s in enumerate(verbs)],
+                       "info": {"video_metadata": {v: {"fps": 30.0, "frame_height": h, "frame_width": w}
+                                                   for v in vids}},
+                       "annotations": anns}, f)
+    # Generated noun ids are 1-based over the sorted names (0: background).
+    class_names = ["background"] + sorted(V2_NOUN_OVERRIDES.get(i, s) for i, s in enumerate(names))
+    label_file = os.path.join(root, "labels.json")
+    with open(label_file, "w") as f:
+        json.dump({"categories": [{"name": s} for s in class_names]}, f)
+
+    cfg = flagship_run_config()
+    tiers = {"model": dict(cfg["model"], verb_classifier={"type": False, "representation_size": 512}),
+             "fusion": cfg["run"]["narr_fusion"]}
+    paths = {k: os.path.join(root, f"{k}.yml") for k in ("model", "fusion", "run")}
+    run = dict(cfg, model=paths["model"], run=dict(cfg["run"], narr_fusion={"config": paths["fusion"]}))
+    for k, v in (*tiers.items(), ("run", run)):
+        with open(paths[k], "w") as f:
+            yaml.safe_dump(v, f)
+
+    annots = pd.DataFrame([{"start_frame": s, "narration_id": f"{TOOL_VIDEO}_{i}", "narration": f"take {n}",
+                            "starting_ms": s / 0.03, "fps": 30.0, "verb": "take", "all_nouns": [n]}
+                           for i, (s, n) in enumerate(((0, "cup"), (200, "cup"), (500, "plate")))])
+    annots_pkl = os.path.join(root, "annots.pkl")
+    annots.to_pickle(annots_pkl)
+    soft = {"no_matches": [], "actions": {"obj_only": [], "take_closest_to_hand": [], "take_all_instances": []},
+            "cup": {"default": class_names[1:]}, "plate": {"default": class_names[::-1][:-1]}}
+    soft_path = os.path.join(root, "soft.json")
+    with open(soft_path, "w") as f:
+        json.dump({"ego4d": soft}, f)
+    return {"frames": frames, "ids": ids, "data": os.path.join(root, "data"), "label_file": label_file,
+            "class_names": class_names, "config": paths["run"], "annots": annots, "annots_pkl": annots_pkl,
+            "soft": soft, "soft_path": soft_path}
+
+
+def tool_reference(torch, np, trainer, inp: dict, thresh: float) -> list:
+    """The detections the tool's detector should give: each batch read and
+    transformed as make_detect_fn does, through the port's make_eval_step on
+    the tool's trainer, thresholded and scaled back to the frame."""
+    from transfusion_torch.data.readers import Ego4dJpgReader
+    from transfusion_torch.data.transforms import transform_example
+    from transfusion_torch.train.step import make_eval_step
+
+    step = make_eval_step(trainer.model, trainer.model_cfg.detector,
+                          noun_verb_frequencies=trainer.noun_verb_freqs)
+    reader = Ego4dJpgReader(inp["frames"], TOOL_VIDEO)
+    bucket = tuple(trainer.aug.eval_bucket())
+    out = []
+    for lo in range(0, TOOL_FRAMES, B):
+        imgs = [reader.get_frame(f) for f in inp["ids"][lo:lo + B]]
+        ims = [transform_example(np.random.default_rng(0), img, np.zeros((0, 4), np.float32), trainer.aug,
+                                 bucket, training=False)[0] for img in imgs]
+        ids, mask = trainer.tokenizer.encode_batch([""] * len(imgs))
+        db = trainer._device_batch({"image": np.stack(ims), "input_ids": ids, "attention_mask": mask,
+                                    "image_hw": bucket}, with_targets=False)
+        dets = {k: v.cpu().numpy() for k, v in step(db).items()}
+        for i, img in enumerate(imgs):
+            v = dets["valid"][i] & (dets["scores"][i] >= thresh)
+            sx, sy = img.shape[1] / bucket[1], img.shape[0] / bucket[0]
+            out.append((dets["nouns"][i][v], dets["scores"][i][v],
+                        dets["boxes"][i][v] * np.array([sx, sy, sx, sy], np.float32)))
+    return out
+
+
+def phase_tools(torch, np, smi: str) -> dict:
+    """extract (twice) and label through the tool's CLI, held against the
+    eval step; one extract batch traced; the native STA matcher against the
+    numpy one on phase 6's result JSON; phase 6's plot."""
+    import importlib.util
+    import shutil
+    from dataclasses import replace
+
+    import pandas as pd
+    from torch.autograd import DeviceType
+
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.metrics import STAMeanAveragePrecision, native
+    from transfusion_torch.models.transfusion import flagship_config
+    from transfusion_torch.runner.trainer import EgoNaoTrainer
+    from transfusion_torch.tools import label_extraction as le
+    from transfusion_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "chiprun_out", "tools_run")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    inp = tool_inputs(np, root)
+    log(f"[tools] inputs written in {time.perf_counter() - t0:.1f} s: {TOOL_FRAMES} frames "
+        f"{TOOL_HW[0]}x{TOOL_HW[1]} ({sum(os.path.getsize(os.path.join(inp['frames'], f)) for f in os.listdir(inp['frames'])) / 2 ** 20:.1f} MiB of JPEG)")
+    made = []  # (trainer, detect, its outputs) of each extract run
+    make_detect_fn = EgoNaoTrainer.make_detect_fn
+
+    def spy(self, *args, **kwargs):
+        fn = make_detect_fn(self, *args, **kwargs)
+        outs = []
+
+        def detect(images):
+            outs.append(fn(images))
+            return outs[-1]
+
+        detect.timer = fn.timer
+        made.append((self, detect, outs))
+        return detect
+
+    want_cfg = flagship_config()
+    want_cfg = replace(want_cfg, detector=replace(want_cfg.detector, stop_grad_stages=0))
+    rec: dict = {"runs": []}
+    data_env = os.environ.get("DATA")
+    os.environ["DATA"] = inp["data"]
+    EgoNaoTrainer.make_detect_fn = spy
+    try:
+        for thresh in TOOL_THRESHOLDS:
+            out_dir = os.path.join(root, f"extract_{thresh}")
+            argv = ["extract", "--frames-dir", inp["frames"], "--video", TOOL_VIDEO, "--out-dir", out_dir,
+                    "--config", inp["config"], "--label-file", inp["label_file"], "--batch-size", str(B)]
+            argv += [] if thresh is None else ["--score-thresh", str(thresh)]
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            summary = le.main(argv)  # no --device: the tool's default, the card
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            trainer, detect, outs = made[-1]
+            if trainer.device.type != "cuda" or trainer.model_cfg != want_cfg:
+                raise AssertionError(f"[tools] the tool's detector: {trainer.device}, "
+                                     f"{trainer.model_cfg} vs the flagship's {want_cfg}")
+            got = {k: launches.get(k, 0) for k in set(launches) | set(TOOL_EXPECTED)}
+            want = {k: TOOL_EXPECTED.get(k, 0) for k in got}
+            log(f"  extract at threshold {thresh if thresh is not None else 'default 0.4'}: "
+                f"{summary['rows']} rows of {summary['frames']} frames in {wall:.2f} s (trainer built "
+                f"inside); ms a batch {summary['stage_ms']}; launches {got} (expected {want})")
+            if got != want:
+                raise AssertionError("[tools] extract did not launch the kernels as predicted")
+            ref = tool_reference(torch, np, trainer, inp, 0.4 if thresh is None else thresh)
+            flat = [d for batch in outs for d in batch]
+            if len(flat) != len(ref) or not all(
+                    _bits_equal(np, a, b) for x, y in zip(flat, ref) for a, b in zip(x, y)):
+                raise AssertionError("[tools] the detector's outputs differ from make_eval_step's")
+            check_csv = os.path.join(root, f"reference_{thresh}.csv")
+            le.write_detections_csv(pd.DataFrame(le.detections_to_rows(inp["ids"], ref, inp["class_names"]),
+                                                 columns=["Frame_no", "Classes", "Scores", "Bboxes"]), check_csv)
+            with open(summary["out"], "rb") as a, open(check_csv, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"[tools] {summary['out']} differs from the eval step's rows")
+            kept = sum(len(d[0]) for d in flat)
+            log(f"  every row equals make_eval_step's detections slot by slot, bit for bit ({kept} detections)")
+            rec["runs"].append({"threshold": thresh, "rows": summary["rows"], "detections": kept,
+                                "wall_s": wall, "stage_ms": summary["stage_ms"], "launches": got})
+        if rec["runs"][0]["rows"] == 0:
+            raise AssertionError("[tools] the low threshold kept no detection")
+
+        # label, on the low-threshold detections; the same call in this process.
+        csv = os.path.join(root, f"extract_{TOOL_THRESHOLDS[0]}", f"{TOOL_VIDEO}_detections.csv")
+        out = le.main(["label", "--detections-csv", csv, "--annotations-pkl", inp["annots_pkl"],
+                       "--video", TOOL_VIDEO, "--soft-matches", inp["soft_path"], "--out-dir",
+                       os.path.join(root, "label"), "--dataset", "ego4d"])
+        want = le.label_video(le.read_detections_csv(csv), inp["annots"], inp["soft"], 1)
+        pd.testing.assert_frame_equal(pd.read_pickle(out["out"][:-len("csv")] + "pkl"), want)
+        if len(want) == 0:
+            raise AssertionError("[tools] label matched nothing")
+        log(f"  label: {out['rows']} NAO rows, equal to label_video on the same CSV")
+        rec["label_rows"] = out["rows"]
+
+        # One extract batch under the profiler.
+        trainer, detect, _ = made[-1]
+        from transfusion_torch.data.readers import Ego4dJpgReader
+
+        reader = Ego4dJpgReader(inp["frames"], TOOL_VIDEO)
+        imgs = [reader.get_frame(f) for f in inp["ids"][:B]]
+        trace_dir = os.path.join(root, "trace")
+        t0 = time.perf_counter()
+        with profiling.trace(trace_dir) as prof:
+            with profiling.annotate("extract_batch"):
+                detect(imgs)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        path = os.path.join(trace_dir, profiling.TRACE_FILE)
+        with open(path) as f:
+            text = f.read()
+        missing = [k for k in TOOL_TRACE if k not in text]
+        # The annotated region has a device-side range of its own: not a kernel.
+        on_card = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and e.key != "extract_batch"),
+                         key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        top = {e.key[:60]: e.self_device_time_total / 1e3 for e in on_card[:8]}
+        log(f"  traced extract batch: {wall_ms:.1f} ms under the profiler, device busy {busy_ms:.2f} ms; "
+            f"trace {os.path.getsize(path) / 2 ** 20:.1f} MiB names {[k for k in TOOL_TRACE if k in text]}; "
+            f"top device ms {json.dumps({k: round(v, 3) for k, v in top.items()})}")
+        os.remove(path)
+        if missing:
+            raise AssertionError(f"[tools] the trace names none of {missing}")
+        rec["trace"] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "top_device_ms": top}
+        del trainer, detect, prof
+    finally:
+        EgoNaoTrainer.make_detect_fn = make_detect_fn
+        if data_env is None:
+            os.environ.pop("DATA", None)
+        else:
+            os.environ["DATA"] = data_env
+        made.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The native STA matcher on phase 6's exported detections.
+    if not native.native_available():
+        raise AssertionError("[tools] the native STA matcher did not build")
+    with open(os.path.join(HERE, "chiprun_out", "trainer_run", "results", "val_epoch0.json")) as f:
+        results = json.load(f)["results"]
+    val = trainer_data(np).val_ds.examples  # phase 6's examples (same seed)
+    class NumpyMatcher(STAMeanAveragePrecision):
+        def _try_native(self, *args):
+            return None
+
+    maps = {}
+    for use_native in (True, False):
+        metric = (STAMeanAveragePrecision if use_native else NumpyMatcher)(top_k=5)
+        t0 = time.perf_counter()
+        for ex in val:
+            e = results[ex["id"]]
+            metric.add({"boxes": np.asarray([d["box"] for d in e], np.float64).reshape(-1, 4),
+                        "scores": np.asarray([d["score"] for d in e], np.float64),
+                        "nouns": np.asarray([d["noun_category_id"] for d in e]),
+                        "verbs": np.asarray([d["verb_category_id"] for d in e]),
+                        "ttcs": np.asarray([d["time_to_contact"] for d in e], np.float64)},
+                       {k: ex[k] for k in ("boxes", "nouns", "verbs", "ttcs")})
+        maps[use_native] = (np.asarray(metric.evaluate()), time.perf_counter() - t0, np.concatenate(metric._tp))
+    gap = float(np.nanmax(np.abs(maps[True][0] - maps[False][0]))) if np.isfinite(maps[True][0]).any() else 0.0
+    same_nan = np.array_equal(np.isnan(maps[True][0]), np.isnan(maps[False][0]))
+    same_tp = np.array_equal(maps[True][2], maps[False][2], equal_nan=True)
+    log(f"  STA mAP of phase 6's JSON, native {maps[True][0].round(4).tolist()} ({maps[True][1] * 1e3:.1f} ms) "
+        f"vs numpy ({maps[False][1] * 1e3:.1f} ms): max gap {gap:.3g} (tolerance {NATIVE_TOL}); tp arrays "
+        f"{'equal' if same_tp else 'DIFFER'}, {int(np.nansum(maps[True][2]))} true positives over 8 measures")
+    if gap > NATIVE_TOL or not same_nan or not same_tp:
+        raise AssertionError("[tools] the native matcher's mAP differs from the numpy matcher's")
+    rec["native"] = {"gap": gap, "native_ms": maps[True][1] * 1e3, "numpy_ms": maps[False][1] * 1e3,
+                     "map": maps[True][0].tolist(), "true_positives": int(np.nansum(maps[True][2]))}
+
+    plot = os.path.join(HERE, "chiprun_out", "trainer_run", "plots", "val", "epoch_000.jpg")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    rec["plot"] = os.path.isfile(plot)
+    log(f"  phase 6's fit {'wrote its plot ' + plot if rec['plot'] else 'ran without a plot'} "
+        f"(matplotlib {'present' if has_mpl else 'absent'})")
+    if has_mpl and not rec["plot"]:
+        raise AssertionError("[tools] matplotlib is present but phase 6 wrote no plot")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  tools phase wall time {rec['phase_s']:.1f} s ({smi})")
+    return rec
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3451,6 +3769,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     heatmap_rec, heatmap_rows = phase_heatmap(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools_rec = phase_tools(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -3490,7 +3811,7 @@ def main() -> int:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
                    "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
                    "data_parallel": dp_rec, "tensor_parallel": tp_rec, "backbones": backbones_rec,
-                   "heatmap": heatmap_rec,
+                   "heatmap": heatmap_rec, "tools": tools_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -337,8 +337,9 @@ def _port_files():
 
 
 # The trainer slice's, the fusion options', the towers' and TTC head's, the
-# data-parallel slice's, the model axis's, the other backbones' and the
-# heatmap family's modules, each of which the scan must reach.
+# data-parallel slice's, the model axis's, the other backbones', the heatmap
+# family's and the host helpers' and tools' modules, each of which the scan
+# must reach.
 TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", "data/labels.py",
                    "data/annotations.py", "data/splits.py", "data/transforms.py",
                    "data/dataset.py", "data/loader.py", "models/transfusion.py", "models/fusion.py",
@@ -350,7 +351,12 @@ TRAINER_MODULES = ("config/loader.py", "config/derive.py", "data/tokenizer.py", 
                    "parallel/tensor_parallel.py", "models/mobilenet.py", "models/dual_stream.py",
                    "data/readers.py", "models/misc_layers.py", "models/resnet_nao.py", "models/scnn.py",
                    "models/heatmap_fusion.py", "data/heatmaps.py", "data/snao.py", "data/epic_nao.py",
-                   "metrics/hmap_metrics.py")
+                   "metrics/hmap_metrics.py", "metrics/native.py", "utils/profiling.py",
+                   "runner/callbacks.py", "runner/wandb_resume.py", "tools/label_extraction.py",
+                   "tools/translate_checkpoint.py", "tools/evaluate_result_json.py",
+                   "tools/postprocess_result_json.py", "tools/adapt_ttc_values.py",
+                   "tools/produce_object_detections.py", "tools/compute_norm_stats.py",
+                   "tools/extract_frames.py", "tools/generate_splits.py")
 
 
 def test_port_imports_no_jax():

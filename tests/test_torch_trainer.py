@@ -3,7 +3,7 @@ config end to end through ``python -m transfusion_torch.runner.run_experiment``
 (train, validation, export, checkpoint, resume-eval), the trainer without
 PyYAML, pandas, Pillow or OpenCV (the card machine's case when it has none
 of them), checkpoint save / restore / tolerant merge / head replacement,
-and the options that are not ported yet. The run's losses and metrics are
+and the wandb flags of the CLI. The run's losses and metrics are
 checked for being finite and in range, the resumed state and evaluation for
 being equal bit for bit (the same arithmetic on the same host).
 """
@@ -246,15 +246,40 @@ def test_trainer_runs_without_the_file_packages(tmp_path):
     assert os.path.isfile(tmp_path / "run" / "checkpoints" / "epoch_0000" / "state.pt")
 
 
-@pytest.mark.parametrize("flag", [["--wandb-project", "x"], ["--do-not-log-checkpoints"],
+@pytest.mark.parametrize("flag", [[], ["--wandb-project", "x"], ["--wandb-entity", "x"],
+                                  ["--do-not-log-checkpoints"], ["--skip-ssl-verification"],
                                   ["--resume-from", "someuser/proj/run:latest"],
-                                  ["--skip-ssl-verification"], ["--wandb-entity", "x"],
                                   ["--resume-from", "someuser/proj/run:v3"]])
-def test_cli_refuses_unported_flags(flag):
-    from transfusion_torch.runner.run_experiment import main
+def test_cli_takes_the_wandb_flags(flag, cli_env, tmp_path, monkeypatch):
+    """The JAX CLI's wandb flags and defaults (project transfusion-tpu);
+    without wandb, maybe_wandb gives no run; --skip-ssl-verification sets
+    the unverified HTTPS context (restored here); a wandb --resume-from
+    reference raises JAX's RuntimeError before the trainer is built."""
+    import ssl
 
-    with pytest.raises(NotImplementedError):
-        main(["--config", "unused.yml", "--device", "cpu", *flag])
+    from transfusion_torch.runner import run_experiment as R
+
+    monkeypatch.setitem(sys.modules, "wandb", None)  # not installed
+    args = R.get_parser().parse_args(["--config", cli_env["config"], *flag])
+    want = {"wandb_project": "transfusion-tpu", "wandb_entity": None, "do_not_log_checkpoints": False,
+            "skip_ssl_verification": False}
+    if flag and not flag[0].startswith("--resume"):
+        key = flag[0][2:].replace("-", "_")
+        want[key] = flag[1] if len(flag) > 1 else True
+    assert {k: getattr(args, k) for k in want} == want
+    assert R.maybe_wandb({"debug": False}, args) is None
+    monkeypatch.setattr(ssl, "_create_default_https_context", ssl.create_default_context)
+    built = []
+    monkeypatch.setattr("transfusion_torch.runner.trainer.EgoNaoTrainer.__init__",
+                        lambda *a, **k: built.append(1))
+    argv = ["--config", cli_env["config"], "--device", "cpu", "--run-dir", str(tmp_path), *flag]
+    if "--resume-from" not in flag:
+        argv += ["--resume-from", "abc123xy:v1"]  # stops the run at its resolution
+    with pytest.raises(RuntimeError, match="wandb is not installed"):
+        R.main(argv)
+    assert not built
+    unverified = ssl._create_default_https_context is ssl._create_unverified_context
+    assert unverified == ("--skip-ssl-verification" in flag)
 
 
 def test_trainer_refuses_multi_device_arguments(tmp_path):

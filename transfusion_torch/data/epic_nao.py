@@ -11,8 +11,8 @@ narration annotations. Reference behavior rebuilt here:
   * dataset roots (``data_preprocessing/utils/path_constants.py:5-12``) and
     per-actor directories (``path_utils.py:18-31``);
   * per-actor NAO annotation loading (``path_utils.py:193-206``; the csv
-    round-trip reader is :func:`read_detections_csv`, a copy of the JAX
-    label tool's);
+    round-trip reader is the label tool's
+    ``tools/label_extraction.py::read_detections_csv``);
   * det_diff filtering with the take_double two-pick variant
     (``dataset_utils.py:17-46``);
   * the merge with the narration-annotations frame that attaches noun/verb
@@ -39,6 +39,8 @@ from typing import Any, Callable
 
 import numpy as np
 
+from transfusion_torch.tools.label_extraction import read_detections_csv
+
 # path_constants.py:5-12 (ego4d roots live in runner.trainer.dataset_root).
 EPIC_EGTEA_DATA_ROOTS = {
     "egtea": "$DATA/EGTEAp",
@@ -60,25 +62,6 @@ def actor_dir(data_root: str | Path, dataset_name: str, actor: str) -> Path:
     if dataset_name == "egtea":
         return root / "videos" / actor
     raise ValueError(f"dataset_name={dataset_name!r} not recognized.")
-
-
-def read_detections_csv(path: Path, index: str = "Frame_no"):
-    """Round-trip loader of the label tool's csv (a copy of
-    ``transfusion_tpu/tools/label_extraction.py::read_detections_csv``;
-    path_utils.py:128-142): list columns parse via literal_eval, empty rows
-    drop, class names lowercase."""
-    import ast
-
-    import pandas as pd
-
-    df = pd.read_csv(path, converters={
-        "Scores": lambda x: np.array(ast.literal_eval(x)),
-        "Classes": lambda x: np.array(ast.literal_eval(x)),
-        "Bboxes": lambda x: np.array(ast.literal_eval(x)),
-    }).set_index(index)
-    df = df[df["Classes"].str.len() > 0]
-    df["Classes"] = df["Classes"].apply(lambda x: np.array([el.lower() for el in x]))
-    return df
 
 
 def load_actor_nao(actor_path: str | Path, actor: str, version: str | int = ""):

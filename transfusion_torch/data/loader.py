@@ -1,10 +1,11 @@
-"""Prefetching host data loader (port of ``transfusion_tpu/data/loader.py``,
-the thread pool only).
+"""Prefetching host data loader (port of ``transfusion_tpu/data/loader.py``).
 
 Replaces the reference's torch DataLoader (6 workers, prefetch_factor 3,
 ``runner/run_experiment.py:376-395``) with a pooled pipeline: JPEG decode +
 augmentation fan out over a persistent thread pool (PIL/cv2 and large-array
-numpy ufuncs release the GIL); batches assemble into numpy arrays and a
+numpy ufuncs release the GIL) or, with ``worker_type="process"`` (or
+``TRANSFUSION_LOADER_WORKERS=process``), a fork-based process pool for
+GIL-free decode; batches assemble into numpy arrays and a
 background thread keeps a bounded queue ahead of the device step. Sharding
 over processes is by index stride; the order, the per-batch bucket and the
 per-example seeds are the JAX loader's for the same seed and epoch. A batch
@@ -18,18 +19,38 @@ those examples. A short batch (``drop_last`` off) is first padded to a
 multiple of ``world`` by repeating its last example, as the JAX trainer
 pads before sharding; ``batch["n_real"]`` counts the slice's rows that are
 not padding.
+
+The process pool forks the caller, as the JAX loader does, so the workers
+share the dataset's pages without pickling it; each worker calls only the
+dataset's ``get_example`` (numpy, Pillow, OpenCV) and never touches a
+tensor, so a parent that has initialised CUDA forks safely.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
 from transfusion_torch.data.dataset import EgoNaoDataset, collate
+
+# Process-pool plumbing: the dataset reaches each worker once (through the
+# fork), then each item sends only (idx, seed, bucket, training).
+_WORKER_DS: EgoNaoDataset | None = None
+
+
+def _init_worker(dataset):
+    global _WORKER_DS
+    _WORKER_DS = dataset
+
+
+def _worker_get_example(args):
+    idx, seed, bucket, training = args
+    return _WORKER_DS.get_example(int(idx), np.random.default_rng(seed), bucket, training)
 
 
 class DataLoader:
@@ -47,6 +68,7 @@ class DataLoader:
         lang_max_length: int = 128,
         drop_last: bool | None = None,
         rank_slice: tuple[int, int] | None = None,
+        worker_type: str | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -63,7 +85,17 @@ class DataLoader:
         self.epoch = 0
         # One persistent decode pool per loader (the reference's torch
         # DataLoader keeps 6 workers alive, run_experiment.py:376-395).
-        self._pool = ThreadPoolExecutor(max_workers=num_workers)
+        self.worker_type = worker_type or os.environ.get("TRANSFUSION_LOADER_WORKERS", "thread")
+        if self.worker_type == "process":
+            import multiprocessing as mp
+
+            self._pool = ProcessPoolExecutor(
+                max_workers=num_workers, mp_context=mp.get_context("fork"),
+                initializer=_init_worker, initargs=(dataset,))
+        elif self.worker_type == "thread":
+            self._pool = ThreadPoolExecutor(max_workers=num_workers)
+        else:
+            raise ValueError(f"worker_type {self.worker_type!r}: 'thread' or 'process'")
         # host-side input timing: seconds spent decoding+collating per batch
         # (consumed by the trainer for history.jsonl input/step accounting).
         self.decode_times: list[float] = []
@@ -93,14 +125,16 @@ class DataLoader:
             b = len(indices) // world
             indices, seeds = indices[rank * b:(rank + 1) * b], seeds[rank * b:(rank + 1) * b]
             n_real = max(min(n_real - rank * b, b), 0)
-        samples = list(
-            self._pool.map(
+        if self.worker_type == "process":
+            samples = list(self._pool.map(
+                _worker_get_example,
+                [(int(i), s, bucket, self.training) for i, s in zip(indices, seeds)],
+                chunksize=max(1, len(indices) // (4 * self.num_workers))))
+        else:
+            samples = list(self._pool.map(
                 lambda iw: self.dataset.get_example(
-                    int(iw[0]), np.random.default_rng(iw[1]), bucket, self.training
-                ),
-                zip(indices, seeds),
-            )
-        )
+                    int(iw[0]), np.random.default_rng(iw[1]), bucket, self.training),
+                zip(indices, seeds)))
         batch = collate(samples, self.tokenizer, self.lang_max_length)
         batch["image_hw"] = bucket
         if self.rank_slice is not None:

@@ -1,5 +1,7 @@
-"""Ego4D STA mean-average-precision suite (host-side numpy; port of
-``transfusion_tpu/metrics/sta_map.py`` with its numpy matcher).
+"""Ego4D STA mean-average-precision suite (host-side; port of
+``transfusion_tpu/metrics/sta_map.py``): the greedy matcher runs in C++
+(``metrics/native.py``) where the library builds, else in numpy; both give
+the same tp arrays.
 
 Re-implements the official Ego4D STA evaluation semantics the reference
 vendors (``runner/metrics_losses/ego_metrics.py:376-561``), producing the 8
@@ -132,22 +134,26 @@ class STAMeanAveragePrecision:
         gt_boxes = np.asarray(labels["boxes"]).reshape(-1, 4)
         ng = len(gt_boxes)
         if ng > 0:
-            ious = iou_plus_one(pred_boxes.reshape(-1, 4), gt_boxes)
-            gt_taken = np.zeros((ng, self.NUM_MEASURES), dtype=bool)
+            native_tp = self._try_native(preds, labels, np_preds)
+            if native_tp is not None:
+                tp = native_tp
+            else:
+                ious = iou_plus_one(pred_boxes.reshape(-1, 4), gt_boxes)
+                gt_taken = np.zeros((ng, self.NUM_MEASURES), dtype=bool)
 
-            # Highest score first; ties in reverse input order (argsort[::-1]).
-            for i in np.argsort(scores, kind="stable")[::-1]:
-                pred_i = {
-                    k: (v[i] if not (k == "ttcs" and (v is None or len(v) <= i)) else -1.0)
-                    for k, v in preds.items()
-                }
-                cand = self._candidate_matches(pred_i, labels, ious[i])  # [NG, 8]
-                cand = cand & ~gt_taken
-                ov = np.where(cand, ious[i][:, None], -1.0)
-                best_gt = ov.argmax(axis=0)
-                hit = cand[best_gt, np.arange(self.NUM_MEASURES)]
-                tp[i, hit] = 1.0
-                gt_taken[best_gt, np.arange(self.NUM_MEASURES)] |= hit
+                # Highest score first; ties in reverse input order (argsort[::-1]).
+                for i in np.argsort(scores, kind="stable")[::-1]:
+                    pred_i = {
+                        k: (v[i] if not (k == "ttcs" and (v is None or len(v) <= i)) else -1.0)
+                        for k, v in preds.items()
+                    }
+                    cand = self._candidate_matches(pred_i, labels, ious[i])  # [NG, 8]
+                    cand = cand & ~gt_taken
+                    ov = np.where(cand, ious[i][:, None], -1.0)
+                    best_gt = ov.argmax(axis=0)
+                    hit = cand[best_gt, np.arange(self.NUM_MEASURES)]
+                    tp[i, hit] = 1.0
+                    gt_taken[best_gt, np.arange(self.NUM_MEASURES)] |= hit
 
             if self.top_k is not None and self.top_k > 1:
                 budget = (self.top_k - 1) * ng
@@ -164,6 +170,22 @@ class STAMeanAveragePrecision:
         self._tp.append(tp)
         self._scores.append(scores)
         self._pred_classes.append(pred_classes)
+
+    def _try_native(self, preds: dict, labels: dict, np_preds: int):
+        """The C++ matcher (``metrics/native.py``) where the inputs are in the
+        standard array form (every key full length) and the library builds;
+        returns tp [N, 8] or None."""
+        if preds.get("ttcs") is None or len(np.atleast_1d(preds["ttcs"])) != np_preds:
+            return None
+        if "verbs" not in preds or "verbs" not in labels:
+            return None
+        from transfusion_torch.metrics.native import sta_match_native
+
+        return sta_match_native(
+            preds["boxes"], preds["scores"], preds["nouns"], preds["verbs"], preds["ttcs"],
+            labels["boxes"], labels["nouns"], labels["verbs"], labels["ttcs"],
+            self.iou_threshold, self.ttc_threshold,
+        )
 
     @staticmethod
     def _voc_ap(prec: np.ndarray, rec: np.ndarray) -> float:

@@ -3,9 +3,10 @@
 
     python -m transfusion_torch.runner.run_experiment \
         --config $CODE/runner/nao/configs/ego_nao_res50_ego4dv2.yml \
-        [--debug] [--run-val] [--run-test] [--resume-from PATH] [--epochs N] \
-        [--run-dir DIR] [--device cuda|cpu] [--devices N] [--distributed] \
-        [--mesh-model M] [--mesh-fsdp]
+        [--debug] [--run-val] [--run-test] [--resume-from PATH|ID[:vN]|URL] \
+        [--epochs N] [--run-dir DIR] [--device cuda|cpu] [--devices N] \
+        [--distributed] [--mesh-model M] [--mesh-fsdp] [--wandb-entity E] \
+        [--wandb-project P] [--do-not-log-checkpoints] [--skip-ssl-verification]
 
 The reference YAMLs run unmodified (``${CODE}``/``${DATA}``/``${RUNS}``
 interpolation included); the JSONL history and the challenge JSONs in the
@@ -18,8 +19,12 @@ joins the process group torchrun describes in the environment
 --distributed ...``). ``--mesh-model M`` factors the N ranks as (N / M, M),
 as the JAX CLI does: the weights the JAX rule splits are split over the M
 ranks of each data row (tensor parallelism). ``--mesh-fsdp`` shards the
-large parameters' optimizer state over the data axis. The wandb flags are
-accepted as in the JAX CLI and raise NotImplementedError.
+large parameters' optimizer state over the data axis. wandb is optional:
+where the package imports (and the run is not a debug run), rank 0 logs the
+config, each epoch's record, plot, checkpoint and result JSON to
+``--wandb-project`` / ``--wandb-entity``; ``--resume-from`` also takes a
+wandb run id ``id[:vN]`` or run URL and downloads its ``model-<id>``
+artifact (``runner/wandb_resume.py``), which raises without wandb.
 """
 
 from __future__ import annotations
@@ -37,7 +42,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, required=True, help="run config YAML")
     p.add_argument("--debug", action="store_true", default=False,
                    help="reduced samples + small batch end-to-end check")
-    p.add_argument("--resume-from", type=str, default="", help="checkpoint directory")
+    p.add_argument("--resume-from", type=str, default="",
+                   help="checkpoint directory, or wandb run id[:vN] / URL "
+                        "(downloads the model artifact)")
     p.add_argument("--run-test", action="store_true", default=False)
     p.add_argument("--run-val", action="store_true", default=False)
     p.add_argument("--epochs", type=int, default=None, help="override run.epochs")
@@ -52,16 +59,14 @@ def get_parser() -> argparse.ArgumentParser:
                    help="join the process group torchrun describes (TRANSFUSION_DISTRIBUTED=1)")
     p.add_argument("--mesh-model", type=int, default=1,
                    help="tensor parallelism: M ranks of a data row split the model's weights")
-    # Not ported yet: each raises NotImplementedError when set.
-    p.add_argument("--skip-ssl-verification", action="store_true", default=False)
-    p.add_argument("--do-not-log-checkpoints", action="store_true", default=False)
+    p.add_argument("--skip-ssl-verification", action="store_true", default=False,
+                   help="disable SSL certificate verification for wandb "
+                        "artifact downloads (reference run_experiment.py:307-310)")
+    p.add_argument("--do-not-log-checkpoints", action="store_true", default=False,
+                   help="skip uploading per-epoch checkpoint artifacts to wandb")
     p.add_argument("--wandb-entity", default=None)
-    p.add_argument("--wandb-project", default=None)
+    p.add_argument("--wandb-project", default="transfusion-tpu")
     return p
-
-
-_UNPORTED = (("skip_ssl_verification", False), ("do_not_log_checkpoints", False),
-             ("wandb_entity", None), ("wandb_project", None))
 
 
 def make_run_dir(experiment: str, override: str | None) -> str:
@@ -72,6 +77,18 @@ def make_run_dir(experiment: str, override: str | None) -> str:
     run_dir = os.path.join(base, experiment, time.strftime("%Y%m%d_%H%M%S"))
     os.makedirs(run_dir, exist_ok=True)
     return run_dir
+
+
+def maybe_wandb(config: dict, args) -> object | None:
+    """A wandb run, or None where wandb does not import or the run is a
+    debug run (unless ``force_wandb_logging``)."""
+    try:
+        import wandb
+    except ImportError:
+        return None
+    if config.get("debug") and not config.get("force_wandb_logging"):
+        return None
+    return wandb.init(project=args.wandb_project, entity=args.wandb_entity, config=dict(config))
 
 
 def _rank_main(rank: int, argv, world: int, port: int, device_type: str):
@@ -94,12 +111,6 @@ def main(argv=None):
     from transfusion_torch.parallel import mesh
 
     args = get_parser().parse_args(argv)
-    for name, default in _UNPORTED:
-        if getattr(args, name) != default:
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet")
-    if args.resume_from and not os.path.isdir(args.resume_from):
-        raise NotImplementedError(f"--resume-from {args.resume_from!r}: only a checkpoint "
-                                  "directory is ported (not a wandb run reference)")
     if mesh.distributed_requested(args.distributed):
         mesh.init_process_group(device_type=args.device.split(":")[0])
         try:
@@ -126,10 +137,17 @@ def _shared_run_dir(experiment: str, override: str | None) -> str:
 
 def _run(args):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    if args.skip_ssl_verification:
+        # The reference's mechanism (run_experiment.py:307-310): clusters with
+        # intercepting proxies otherwise fail the wandb artifact fetch.
+        import ssl
+
+        ssl._create_default_https_context = ssl._create_unverified_context
 
     from transfusion_torch.config import derive_config, load_config
-    from transfusion_torch.parallel.mesh import make_mesh, rank
+    from transfusion_torch.parallel.mesh import allgather_pyobj, make_mesh, rank
     from transfusion_torch.runner.trainer import EgoNaoTrainer
+    from transfusion_torch.runner.wandb_resume import resolve_resume
 
     config = load_config(args.config)
     if config.get("experiment") != "egonao":
@@ -152,10 +170,23 @@ def _run(args):
     logging.getLogger().addHandler(fh)
     logging.info("run dir: %s", run_dir)
 
-    trainer = EgoNaoTrainer(config, run_dir, debug=config["debug"], device=args.device,
-                            mesh=make_mesh(model=args.mesh_model), fsdp=args.mesh_fsdp)
-    resume = args.resume_from or None
+    wb = None
     try:
+        # A local path, or a wandb id[:vN] / URL whose artifact rank 0
+        # downloads (run_experiment.py:188-253), before anything is built.
+        resume = resolve_resume(args.resume_from or None, run_dir, args.wandb_entity,
+                                args.wandb_project) if rank() == 0 else None
+        resume = allgather_pyobj(resume)[0]
+        wb = maybe_wandb(config, args) if rank() == 0 else None
+        if wb is not None:
+            # Config artifact at run start (run_experiment.py:312-327).
+            import wandb
+
+            art = wandb.Artifact(f"config-{wb.id}", type="config")
+            art.add_file(os.path.join(run_dir, "config.json"))
+            wb.log_artifact(art)
+        trainer = EgoNaoTrainer(config, run_dir, debug=config["debug"], device=args.device,
+                                mesh=make_mesh(model=args.mesh_model), fsdp=args.mesh_fsdp)
         if config["run"].get("run_test") or config["run"].get("run_val"):
             trainer.ensure_state(resume)
             test = bool(config["run"].get("run_test"))
@@ -164,12 +195,15 @@ def _run(args):
             if rank() == 0:
                 print(json.dumps(result.metrics, indent=1))
         else:
-            history = trainer.fit(epochs=args.epochs, resume_from=resume)
+            history = trainer.fit(epochs=args.epochs, resume_from=resume, wandb_run=wb,
+                                  log_checkpoints=not args.do_not_log_checkpoints)
             if rank() == 0:
                 print(json.dumps(history[-1] if history else {}, indent=1))
     finally:
         logging.getLogger().removeHandler(fh)
         fh.close()
+        if wb is not None:
+            wb.finish()
 
 
 if __name__ == "__main__":

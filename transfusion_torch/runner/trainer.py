@@ -2,8 +2,10 @@
 ``transfusion_tpu/runner/trainer.py``): the epoch freeze rules, the data
 (:func:`build_trainer_data`), and :class:`EgoNaoTrainer` (model, steps,
 resume and pretrained init, ``train_epoch``, ``evaluate`` to the Ego4D STA
-challenge JSON with STA mAP and real validation losses, and ``fit`` with a
-checkpoint an epoch, ``history.jsonl`` and ``best.json``).
+challenge JSON with STA mAP, real validation losses and the GT-vs-prediction
+plot, ``fit`` with a checkpoint an epoch, ``history.jsonl``, ``best.json``
+and the wandb uploads, and ``make_detect_fn``, the plain detector of the
+offline tools).
 
 The freeze rules work over the port's ``named_parameters()``. The JAX
 parameter paths map onto the port's reference names: ``backbone`` (the
@@ -68,7 +70,7 @@ from transfusion_torch.train.checkpoint import (CheckpointManager, map_tensors,
 from transfusion_torch.train.losses import build_class_weights
 from transfusion_torch.train.optim import make_optimizer
 from transfusion_torch.train.step import (LossConfig, TrainState, criterion_weights,
-                                          make_eval_loss_step, make_train_step,
+                                          make_eval_loss_step, make_eval_step, make_train_step,
                                           normalized_criterion_weights)
 from transfusion_torch.weights import fold_plain_stem, init_random_, strip_wrapper_prefixes
 
@@ -388,7 +390,23 @@ class EgoNaoTrainer:
         self.ckpt = CheckpointManager(run_dir)
         self.monitor = monitor_metric_name(self.run["criterion"])
         self.history: list[dict] = []
-        self.plotter = None  # the GT-vs-prediction plots are not ported yet
+        self.last_plot_path = None  # the latest evaluation's plot, for the wandb upload
+        self._build_plotter()
+
+    def _build_plotter(self):
+        """Per-epoch GT-vs-prediction plot grids (BboxPlotterCallback
+        equivalent); None where matplotlib cannot be imported."""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            self.plotter = None
+            return
+        from transfusion_torch.runner.callbacks import BboxPlotter
+
+        self.plotter = BboxPlotter(
+            self.run_dir, {v: k for k, v in self.noun_mapping.items()},
+            {v: k for k, v in self.verb_mapping.items()},
+            normalization=self.aug.normalization, channel_order=self.aug.channel_order)
 
     # --------------------------------------------------------------- model
     def _set_stop_grad_stages(self, p: int):
@@ -448,6 +466,8 @@ class EgoNaoTrainer:
         self.sharding = Sharding(self.model, self.fsdp)
         self.train_step = make_train_step(self.model, self.tx, self.loss_cfg, self.noun_w,
                                           self.verb_w, self.sharding)
+        self.eval_step = make_eval_step(self.model, self.model_cfg.detector,
+                                        noun_verb_frequencies=self.noun_verb_freqs)
         # Detections and real validation losses from one trunk (the
         # reference logs its normalised-weight val loss over constant zeros,
         # ego_nao_trainer.py:407-427).
@@ -480,6 +500,7 @@ class EgoNaoTrainer:
                             "unnormalized and detector losses converge pathologically slowly; "
                             "set model.batch_norm.use: True or provide model.pretrained.")
             return
+        self._check_tokenizer_provenance(resume_from)
         fresh = {k: v.clone() for k, v in self.model.state_dict().items()}
         self.state = self.ckpt.restore(self.model, path=resume_from)
         self.state.opt_state = self.sharding.shard_state(self.state.opt_state)
@@ -496,6 +517,7 @@ class EgoNaoTrainer:
         path = os.path.expandvars(path)
         fresh = self.model.state_dict()
         if os.path.isdir(path):
+            self._check_tokenizer_provenance(path)
             sd = torch.load(os.path.join(path, CheckpointManager.STATE), map_location="cpu",
                             weights_only=True)["model"]
         elif os.path.isfile(path):
@@ -513,6 +535,27 @@ class EgoNaoTrainer:
                       for k, v in merged.items()}
         self.model.load_state_dict(merged)
         log.info("pretrained init: %d tensors from %s", sum(k in sd for k in fresh), path)
+
+    def _check_tokenizer_provenance(self, resume_from: str):
+        """Fail loudly when a checkpoint carrying pretrained language-tower
+        weights (the ``<dir>.provenance.json`` sidecar that
+        ``tools/translate_checkpoint.py`` writes) is restored while the
+        active tokenizer is a hash fallback: the tower would otherwise see
+        garbage token ids with no error."""
+        prov_path = os.path.abspath(resume_from).rstrip("/") + ".provenance.json"
+        if not os.path.isfile(prov_path):
+            return
+        with open(prov_path) as fp:
+            prov = json.load(fp)
+        if (prov.get("pretrained_language_tower")
+                and getattr(self.tokenizer, "is_hash_fallback", False)
+                and self.model_cfg.text_encoder != "identity"):
+            raise RuntimeError(
+                f"checkpoint {resume_from!r} carries pretrained language-tower "
+                "weights but the active tokenizer is a hash fallback (no vocab "
+                "files found) — token ids would be garbage. Provide the real "
+                "vocab via TOKENIZER_VOCAB / GPT2_VOCAB_JSON+GPT2_MERGES / "
+                "T5_SPM (or TOKENIZER_DIR) and retry.")
 
     # ---------------------------------------------------------------- train
     def _device_batch(self, batch, with_targets: bool = True) -> dict:
@@ -583,10 +626,14 @@ class EgoNaoTrainer:
         loss_agg: dict = {}
         loss_batches = 0
         bucket = self.aug.eval_bucket()
+        first_plot = None
         cap_inexact_images = 0  # pre-NMS cap exactness diagnostic (roi_heads)
         for batch in loader:
             dets, losses = self.eval_loss_step(self._device_batch(batch), self.val_loss_w)
             dets = map_tensors(dets, lambda t: t.cpu().numpy())
+            if first_plot is None and self.plotter is not None and rank() == 0:
+                first_plot = ({"image": np.asarray(batch["image"][:8]), "targets": batch["targets"]},
+                              {k: v[:8] for k, v in dets.items()})
             if "pre_nms_missed" in dets:
                 kept = dets["valid"].sum(axis=1)
                 cap_inexact_images += int(
@@ -640,6 +687,13 @@ class EgoNaoTrainer:
         for k, v in loss_agg.items():
             metrics[f"{source}_{k}"] = v / max(loss_batches, 1)
         log.info("epoch %d %s: %s", epoch, source, {k: round(v, 3) for k, v in metrics.items()})
+        self.last_plot_path = None
+        if first_plot is not None:
+            try:
+                # Kept for fit() to mirror into wandb (callbacks.py:276-329).
+                self.last_plot_path = self.plotter(source, epoch, *first_plot)
+            except Exception as e:  # plotting must never break eval
+                log.warning("plot callback failed: %s", e)
         path = None
         if export and rank() == 0:
             path = write_result_json(
@@ -647,24 +701,81 @@ class EgoNaoTrainer:
                 epoch=epoch)
         return EvalResult(metrics=metrics, result_json_path=path)
 
+    def make_detect_fn(self, score_thresh: float | None = None, resume_from: str | None = None):
+        """The plain detector of the offline tools (the role UniDet plays in
+        the reference's label-extraction sweep, label_extraction.py:92-125).
+
+        Returns ``detect(images)`` taking a list/array of uint8 RGB HWC
+        frames and returning, per frame, ``(class_ids, scores, xyxy boxes)``
+        as numpy in the frame's own coordinates, thresholded at
+        ``score_thresh``. The eval transform runs on the host, the narration
+        input is empty, and the eval step runs on the trainer's device.
+        ``detect.timer`` (a ``StepTimer``) holds the seconds of each call's
+        host ``transform`` and its ``device`` stage (upload, eval step and the
+        detections' copy back)."""
+        from transfusion_torch.data.transforms import transform_example
+        from transfusion_torch.utils.profiling import StepTimer
+
+        self.ensure_state(resume_from=resume_from)
+        bucket = tuple(self.aug.eval_bucket())
+        rng = np.random.default_rng(0)  # unused on the eval path
+        empty = np.zeros((0, 4), np.float32)
+        timer = StepTimer()
+
+        def detect(images):
+            n = len(images)
+            ims, scales = [], []
+            with timer.stage("transform"):
+                for img in images:
+                    oh, ow = img.shape[:2]
+                    im, _ = transform_example(rng, np.asarray(img), empty, self.aug, bucket,
+                                              training=False)
+                    ims.append(im)
+                    scales.append((ow / bucket[1], oh / bucket[0]))
+                ids, mask = self.tokenizer.encode_batch([""] * n)
+            with timer.stage("device"):
+                db = self._device_batch({"image": np.stack(ims), "input_ids": ids,
+                                         "attention_mask": mask, "image_hw": bucket},
+                                        with_targets=False)
+                dets = map_tensors(self.eval_step(db), lambda t: t.cpu().numpy())
+            out = []
+            for i in range(n):
+                v = dets["valid"][i]
+                if score_thresh is not None:
+                    v = v & (dets["scores"][i] >= score_thresh)
+                sx, sy = scales[i]
+                boxes = dets["boxes"][i][v] * np.array([sx, sy, sx, sy], np.float32)
+                out.append((dets["nouns"][i][v], dets["scores"][i][v], boxes))
+            return out
+
+        detect.timer = timer
+        return detect
+
     # ------------------------------------------------------------------ fit
     def fit(self, epochs: int | None = None, resume_from: str | None = None, wandb_run=None,
             wandb_module=None, log_checkpoints: bool = True):
         """Train for ``epochs`` (run.epochs by default), validating every
         ``val_every`` epochs; a checkpoint an epoch, a line of
         ``history.jsonl`` an epoch, and ``checkpoints/best.json`` for the
-        best monitored metric, written by rank 0. wandb logging is not
-        ported yet."""
-        if wandb_run is not None:
-            raise NotImplementedError("wandb logging is not ported yet")
+        best monitored metric, written by rank 0. With ``wandb_run`` rank 0
+        logs each epoch's record live, the epoch's plot, the checkpoint
+        directory as the ``model-<run id>`` artifact (auto-versioned vN, the
+        address ``wandb_resume.resolve_resume`` downloads; skipped with
+        ``log_checkpoints=False``) and the result JSON as ``results-<run
+        id>`` (WandbLogger(log_model="all"), run_experiment.py:340;
+        ego_nao_trainer.py:250). ``wandb_module`` injects the module."""
         epochs = epochs if epochs is not None else self.run["epochs"]
         self.ensure_state(resume_from)
         val_every = max(int(self.run.get("val_every", 1.0)), 1)
+        if wandb_run is not None and wandb_module is None:
+            import wandb as wandb_module  # type: ignore[no-redef]
         best = None
         for epoch in range(epochs):
             record = {"epoch": epoch, **self.train_epoch(epoch)}
+            result = None
             if (epoch + 1) % val_every == 0:
-                record.update(self.evaluate(epoch).metrics)
+                result = self.evaluate(epoch)
+                record.update(result.metrics)
             # Every rank gathers the split model and optimizer state; rank 0 writes.
             whole = replace(self.state, opt_state=self.sharding.full_state(self.state.opt_state))
             model_state = self.sharding.full_model_state(self.model)
@@ -682,4 +793,22 @@ class EgoNaoTrainer:
             if rank() == 0:
                 with open(os.path.join(self.run_dir, "history.jsonl"), "a") as fp:
                     fp.write(json.dumps(record) + "\n")
+            if wandb_run is not None and rank() == 0:
+                self._log_wandb(wandb_run, wandb_module, epoch, record, result, ckpt_path,
+                                log_checkpoints)
         return self.history
+
+    def _log_wandb(self, wandb_run, wandb_module, epoch: int, record: dict, result, ckpt_path: str,
+                   log_checkpoints: bool):
+        wandb_run.log(record, step=epoch)
+        plot = self.last_plot_path
+        if result is not None and plot and os.path.isfile(plot) and hasattr(wandb_module, "Image"):
+            wandb_run.log({"plots/val": wandb_module.Image(plot)}, step=epoch)
+        if log_checkpoints:
+            art = wandb_module.Artifact(f"model-{wandb_run.id}", type="model")
+            art.add_dir(ckpt_path)
+            wandb_run.log_artifact(art)
+        if result is not None and result.result_json_path:
+            art = wandb_module.Artifact(f"results-{wandb_run.id}", type="result")
+            art.add_file(result.result_json_path)
+            wandb_run.log_artifact(art)
