@@ -104,7 +104,12 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    floor's (one rank against itself with the fusion's linear1 weights
    scaled by 1 + 1e-6) or 1e-4; (d) (b)'s checkpoint resumed at one rank
    holds (b)'s gathered state bit for bit, its evaluation at one rank
-   against model 2's;
+   against model 2's; (e) on the two model ranks of (b), one bf16 step at B 8
+   with ``remat_fusion`` against the plain step (a warm-up, then plain /
+   remat / remat / plain from the same state): the loss and every update
+   within twice the larger run-to-run gap of a setting (predicted equal),
+   the recompute's 32 all-reduces on top of the plain step's collectives,
+   K1 at 9 / 88 a remat step;
 11. the other backbones, each at flagship width (B 8, 768x1024, bf16
    compute, f32 params, seeded weights): (a) ``model.type: mobilenet``
    (trunk training from epoch 0, trainable_layers 3): two eval requests
@@ -152,7 +157,19 @@ CUDA toolkit; exits non-zero at once without a card. Phases:
    under ``utils.profiling.trace``, whose Chrome trace must name K2's and
    K5's kernels; the native STA matcher built and its mAP of phase 6's
    result JSON equal to the numpy matcher's within 1e-12; whether phase
-   6's fit wrote its plot.
+   6's fit wrote its plot;
+14. the fusion levels rematerialised: single-level ``roi_align`` on K5 (a
+   [50, 68, 256] bf16 map, 512 RoIs, sampling ratios 0 and 2) against
+   ``roi_align_plain``, launched once a call, and refused on 8-byte pixels;
+   then the flagship train step (the train slice's input, optimizer and
+   freeze rules, token dropout 0.15) with ``flagship_config(remat_fusion=
+   True)`` against ``False``, at B 8 and at B 32: a warm-up, then plain /
+   remat / remat / plain from the same parameters, batch and (seed, step);
+   the loss and every parameter's update remat against plain within twice
+   the larger run-to-run gap of a setting (predicted equal), launches a
+   step (plain K1 5 / 56, K2 4; remat K1 9 / 88, K2 8; K3, K4 4 and K5, K6
+   1 in both), step s and peak GiB of each, and remat's peak below plain's
+   at each B.
 
 With ``--profile`` the script also times each stage of the eval forward and
 traces one request and one train step with ``torch.profiler`` (device-busy
@@ -2662,6 +2679,48 @@ def tp_fit(torch, np, run_dir: str, mesh_=None, precision: int = 16, batch: int 
     return out
 
 
+def tp_remat(torch, np, run_dir: str, mesh_) -> dict:
+    """Phase 10 (e): on each model rank, one train step of tp_run_config()
+    at B 8 with the fusion levels rematerialised against the plain step
+    (remat_runs: a warm-up, then plain / remat / remat / plain from the same
+    parameters, batch and (seed, step), after a remat warm-up; epoch 0's
+    freeze and multipliers): the gaps and their floors (remat_gaps), step s,
+    peak GiB and the model-group collectives a step of each setting."""
+    from transfusion_torch.data.loader import DataLoader
+    from transfusion_torch.parallel.mesh import data_rank, data_size
+    from transfusion_torch.runner.trainer import (EgoNaoTrainer, backbone_stop_grad_stages, tower_depth,
+                                                  unfreeze_multipliers)
+    from transfusion_torch.train.step import criterion_weights
+
+    trainer = EgoNaoTrainer(tp_run_config(), run_dir, mesh=mesh_, data=trainer_data(np, n_train=B, n_val=B))
+    trainer.ensure_state()
+    # Epoch 0's batch, freeze and multipliers, as EgoNaoTrainer.train_epoch sets them.
+    run, model_cfg = trainer.run, trainer.config["model"]
+    trainer._set_stop_grad_stages(backbone_stop_grad_stages(0, model_cfg,
+                                                            run.get("freeze_backbone_at_epoch", -1)))
+    narr = run["narration_embeds"]["args"]
+    mult = unfreeze_multipliers(trainer.model.named_parameters(), 0, model_cfg, narr.get("train_ep", -1),
+                                narr.get("finetune_layers", 1), tower_depth(trainer.model_cfg),
+                                run.get("freeze_backbone_at_epoch", -1),
+                                text_encoder=trainer.model_cfg.text_encoder)
+    loader = DataLoader(trainer.train_ds, trainer.train_bs, tokenizer=trainer.tokenizer, training=True,
+                        seed=trainer.seed, lang_max_length=trainer.tokenizer.max_length,
+                        rank_slice=(data_rank(), data_size()))
+    batch = trainer._device_batch(next(iter(loader)))
+    runs = remat_runs(torch, trainer.model, trainer.train_step,
+                      lambda: trainer.tx.init(trainer.sharding.views()), batch,
+                      criterion_weights(trainer.criterion, 0), mult)
+    out = {"gaps": remat_gaps(torch, runs), "warmup_s": runs[0]["s"]}
+    for setting in ("plain", "remat"):
+        rs = [r for r in runs[1:] if r["setting"] == setting]
+        out[setting] = {"step_s": [r["s"] for r in rs], "peak_gib": max(r["peak_gib"] for r in rs),
+                        "collectives": [r["collectives"] for r in rs],
+                        "launches": rs[0]["launches"]}
+    del trainer, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
     """Phase 10 (b), (c): one of two model ranks on the card over gloo with
     CUDA tensors, mesh (1, 2): fit(1) in bf16 at B 8, then in f32 at B 2."""
@@ -2680,6 +2739,7 @@ def tp_rank(rank: int, world: int, port: int, out_dir: str) -> None:
         with f32_exact(torch):
             rec["c"] = tp_fit(torch, np, os.path.join(out_dir, "c"), m, precision=32, batch=TP_F32_B,
                               steps=1)
+        rec["e"] = tp_remat(torch, np, os.path.join(out_dir, "e"), m)
         torch.save(rec, os.path.join(out_dir, f"tp_rank{rank}.pt"))
     finally:
         mesh.destroy_process_group()
@@ -2773,6 +2833,26 @@ def phase_tensor_parallel(torch, np, smi: str):
         check("(c) f32 parameter updates, model 2 against one rank (twice the noise floor)",
               c["update_rel_l2_median"], max(F32_TOL, 2 * floor["update_rel_l2_median"]),
               "median relative L2 error")
+
+        # (e) the remat step at model 2 against the plain one, rank by rank.
+        want_remat = dict(TP_EXPECTED_STEP, all_reduce=TP_EXPECTED_STEP["all_reduce"] + TP_REMAT_EXTRA)
+        rec["e"] = []
+        for r, e in enumerate(x["e"] for x in ranks):
+            for setting, want in (("plain", TP_EXPECTED_STEP), ("remat", want_remat)):
+                if any(c != want for c in e[setting]["collectives"]):
+                    raise AssertionError(f"(e) rank {r}: model-group collectives of a {setting} step "
+                                         f"{e[setting]['collectives']}, predicted {want}")
+            got = {k: e["remat"]["launches"].get(k, 0) for k in TP_EXPECTED_LAUNCHES}
+            if got != dict(TP_EXPECTED_LAUNCHES, layer_norm=5 + 4, residual_layer_norm=56 + 32):
+                raise AssertionError(f"(e) rank {r}: a remat step launched {got}")
+            g = e["gaps"]
+            log(f"  (e) rank {r}: remat against plain at model 2, loss {g['loss_plain']!r} / "
+                f"{g['loss_remat']!r} (|diff| {g['loss_abs']:.3g}, floor {g['loss_floor']:.3g}), max "
+                f"|update diff| {g['update_max_abs']:.3g} (floor {g['update_floor']:.3g}); step s plain "
+                f"{[round(t, 3) for t in e['plain']['step_s']]}, remat "
+                f"{[round(t, 3) for t in e['remat']['step_s']]}; peak GiB plain "
+                f"{e['plain']['peak_gib']:.2f}, remat {e['remat']['peak_gib']:.2f}")
+            rec["e"].append(e)
 
         log("[model axis] (d) (b)'s checkpoint resumed at one rank")
         back = EgoNaoTrainer(tp_run_config(), os.path.join(work, "d"),
@@ -3705,6 +3785,226 @@ def phase_tools(torch, np, smi: str) -> dict:
     return rec
 
 
+# ------------------------------------------- phase 14: the fusion levels rematerialised
+# flagship_config(remat_fusion=True) against False on the train slice's
+# input (B 8, then B 32), seeded weights, token dropout 0.15, the same
+# parameters, batch and (seed, step) for every run.
+REMAT_BATCHES = (B, 32)
+REMAT_SEED, REMAT_STEP = 3, 5
+# A warm-up, then plain / remat / remat / plain: two runs of each setting
+# give each its run-to-run gap, the floor the remat-vs-plain gap is held to.
+# The warm-up is a remat step: it warms the shapes of both settings, and a
+# process's first checkpoint imports torch._dynamo (seconds, once).
+REMAT_ORDER = ("remat", "plain", "remat", "remat", "plain")
+# A remat step launches the train slice's kernels and, in its backward, each
+# fusion level's forward again up to its back-projection: K1's 4 final and
+# 32 residual norms and K2 once a level; K3-K6 as before.
+EXPECTED_REMAT_STEP = dict(EXPECTED_PER_STEP, layer_norm=5 + 4, residual_layer_norm=56 + 32,
+                           attention_fwd_dropout=4 + 4)
+# Single-level roi_align on K5: a stride-16 bf16 map of an 800 x 1088 image
+# [50, 68, 256] and 512 RoIs.
+ROI_SINGLE = (50, 68, 256, 512)
+# Phase 10 (e): the model-axis remat step reissues each fusion layer's two
+# forward all-reduces in the recompute; the recompute stops at the
+# back-projection's product, before that product's all-reduce.
+TP_REMAT_EXTRA = 2 * 16
+
+
+def remat_runs(torch, model, step, opt_init, batch, lw, mult, order=REMAT_ORDER) -> list:
+    """One train step for each setting of ``order`` ("plain" or "remat": the
+    model's ``remat_fusion``), each from the same parameters, a fresh
+    optimizer state (``opt_init()``) and the same (seed, step): the loss,
+    every parameter after the step (on the CPU), step s, peak GiB from fresh
+    peak statistics, kernel launches and model-group collectives. The
+    parameters are put back after the last run."""
+    import dataclasses
+
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.parallel import tensor_parallel as tp
+    from transfusion_torch.train.step import TrainState
+
+    cuda = model.device.type == "cuda"
+    params = dict(model.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items()}
+    cfgs = {on: dataclasses.replace(model.tcfg, remat_fusion=on == "remat") for on in ("plain", "remat")}
+    runs = []
+    for setting in order:
+        model.tcfg = cfgs[setting]
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(start[k])
+        state = TrainState(step=REMAT_STEP, opt_state=opt_init(), seed=REMAT_SEED)
+        gc.collect()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        before = dict(tp.COLLECTIVES)
+        t0 = time.perf_counter()
+        m = step(state, batch, lw, mult)
+        if cuda:
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        if m["nonfinite_skipped"] != 0.0 or not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"[remat] a {setting} step went non-finite or was skipped: {m}")
+        runs.append({"setting": setting, "loss": float(m["loss"]), "s": s,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0,
+                     "launches": dict(LAUNCHES),
+                     "collectives": {k: v - before[k] for k, v in tp.COLLECTIVES.items()},
+                     "params": {k: p.detach().to("cpu", copy=True) for k, p in params.items()}})
+    model.tcfg = cfgs["plain"]
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(start[k])
+    del start
+    return runs
+
+
+def remat_gaps(torch, runs: list) -> dict:
+    """Of the last four runs (plain / remat / remat / plain): the largest |difference|
+    of any parameter after the step and of the loss, remat against plain,
+    and the floor each is held to, twice the larger run-to-run gap of a
+    setting (0 where both settings repeat bit for bit)."""
+    def gap(a, b):
+        worst = 0.0
+        for k, v in a["params"].items():
+            if not torch.equal(v, b["params"][k]):
+                worst = max(worst, float((v.double() - b["params"][k].double()).abs().max()))
+        return worst, abs(a["loss"] - b["loss"])
+
+    p1, r1, r2, p2 = runs[-4:]
+    update, loss = gap(p1, r1)
+    floors = [gap(p1, p2), gap(r1, r2)]
+    out = {"update_max_abs": update, "loss_abs": loss,
+           "update_floor": 2 * max(f[0] for f in floors), "loss_floor": 2 * max(f[1] for f in floors),
+           "loss_plain": p1["loss"], "loss_remat": r1["loss"]}
+    if out["update_max_abs"] > out["update_floor"] or out["loss_abs"] > out["loss_floor"]:
+        raise AssertionError(f"[remat] the remat step differs from the plain step beyond the "
+                             f"run-to-run floor: {out}")
+    return out
+
+
+def check_single_level_roi_align(torch) -> dict:
+    """Single-level ``roi_align`` on the card: K5 launched once a call on a
+    one-level bf16 map (ROI_SINGLE), at sampling ratios 0 and 2, against
+    ``roi_align_plain`` on the same one-level pyramid; a map whose pixel
+    does not fill whole 16-byte vectors raises rather than falling back."""
+    from transfusion_torch.kernels import LAUNCHES
+    from transfusion_torch.ops import roi_align as ra
+
+    h, w, c, n = ROI_SINGLE
+    g = torch.Generator(device="cuda").manual_seed(11)
+    feat = torch.randn(h, w, c, device="cuda", generator=g).to(torch.bfloat16)
+    xy = torch.rand(n, 2, device="cuda", generator=g) * torch.tensor([w * 16.0, h * 16.0], device="cuda")
+    rois = torch.cat([xy, xy + 8 + 600 * torch.rand(n, 2, device="cuda", generator=g)], 1)
+    rec = {"shape": [h, w, c], "rois": n}
+    for ratio in (0, 2):
+        before = LAUNCHES["roi_align_fwd"]
+        got = ra.roi_align(feat, rois, 1 / 16, 7, ratio)
+        launched = LAUNCHES["roi_align_fwd"] - before
+        params = ra.roi_sample_params(rois[None], [(h, w)], [0], (h * 16, w * 16), 7, ratio)
+        want = ra.roi_align_plain(feat[None], params)[0]
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(f"roi_align single level bf16 [{h}, {w}, {c}], {n} RoIs, sampling ratio {ratio}", err,
+              3.2e-2)  # bf16 output, f32 sums in both, as the multiscale check
+        if launched != 1 or tuple(got.shape) != (n, 7, 7, c):
+            raise AssertionError(f"single-level roi_align launched K5 {launched} times, shape "
+                                 f"{tuple(got.shape)}")
+        rec[f"ratio_{ratio}"] = {"max_abs_err": err, "launches": launched,
+                                 "ms": cuda_ms(lambda: ra.roi_align(feat, rois, 1 / 16, 7, ratio), 10)}
+    try:
+        ra.roi_align(feat[..., :4].contiguous(), rois, 1 / 16)
+    except ValueError as e:
+        rec["refused"] = str(e)
+    else:
+        raise AssertionError("roi_align ran K5 on a map of 8-byte pixels")
+    log(f"  single-level roi_align: K5 {rec['ratio_0']['ms']:.4f} / {rec['ratio_2']['ms']:.4f} ms "
+        f"(ratio 0 / 2); 4 bf16 channels refused: {rec['refused']}")
+    return rec
+
+
+def remat_batch(torch, np, bsz: int) -> dict:
+    """The train slice's input at ``bsz`` images: seeded images, LANG_LEN
+    tokens, one GT box an image."""
+    rng = np.random.default_rng(bsz)
+    dev = "cuda"
+    return {
+        "image": torch.from_numpy(rng.normal(0, 0.7, (bsz, H, W, 3)).astype(np.float32)).to(dev),
+        "input_ids": torch.from_numpy(rng.integers(0, 30000, (bsz, LANG_LEN))).to(dev),
+        "attention_mask": torch.ones(bsz, LANG_LEN, dtype=torch.int64, device=dev), "image_hw": (H, W),
+        "targets": {
+            "boxes": torch.tensor([[[100.0, 100.0, 400.0, 400.0]]], device=dev).repeat(bsz, 1, 1),
+            "nouns": torch.full((bsz, 1), 2, device=dev), "verbs": torch.full((bsz, 1), 1, device=dev),
+            "ttcs": torch.full((bsz, 1), 0.9, device=dev),
+            "valid": torch.ones(bsz, 1, dtype=torch.bool, device=dev)}}
+
+
+def phase_remat(torch, np, smi: str) -> dict:
+    """Phase 14: the flagship train step with the fusion levels
+    rematerialised (``flagship_config(remat_fusion=True)``) against the
+    plain step, at B 8 and at B 32 (768x1024, seeded weights, token dropout
+    0.15, the train slice's optimizer and freeze rules): a warm-up, then
+    plain / remat / remat / plain from the same parameters, batch and
+    (seed, step); the loss and every parameter's update within the
+    run-to-run floor (remat_gaps; predicted equal), launches a step as
+    EXPECTED_PER_STEP and EXPECTED_REMAT_STEP predict, step s and peak GiB
+    of each, and remat's peak below plain's at each B. First, single-level
+    ``roi_align`` on K5 (check_single_level_roi_align)."""
+    from transfusion_torch.models.transfusion import TransFusion, flagship_config
+    from transfusion_torch.runner.trainer import unfreeze_multipliers
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import LossConfig, criterion_weights, make_train_step
+    from transfusion_torch.weights import init_random_
+
+    t_phase = time.perf_counter()
+    log(f"[remat] single-level roi_align; then the flagship train step with remat_fusion at B "
+        f"{REMAT_BATCHES}, {H}x{W}, runs {REMAT_ORDER} ({smi})")
+    rec: dict = {"card": smi, "roi_align_single": check_single_level_roi_align(torch)}
+    cfg = flagship_config(remat_fusion=True)
+    model = init_random_(TransFusion(cfg, device="cuda"), seed=0)
+    nn_, nv = cfg.detector.roi.num_nouns, cfg.detector.roi.num_verbs
+    tx, _ = make_optimizer({"name": "radam", "lr": 1e-4, "weight_decay": 1e-5}, None, 100)
+    mult = unfreeze_multipliers(model.named_parameters(), 0,
+                                {"type": "res50", "train_ep": -1, "trainable_layers": 2}, -1, 1,
+                                cfg.bert.num_layers)
+    step = make_train_step(model, tx, LossConfig(rpn_batch_size_per_image=256, last_noun_idx=nn_ - 1),
+                           torch.ones(nn_), torch.ones(nv))
+    lw = criterion_weights({"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1})
+    for bsz in REMAT_BATCHES:
+        runs = remat_runs(torch, model, step, lambda: tx.init(dict(model.named_parameters())),
+                          remat_batch(torch, np, bsz), lw, mult)
+        gaps = remat_gaps(torch, runs)
+        for r in runs[1:]:
+            want = EXPECTED_REMAT_STEP if r["setting"] == "remat" else EXPECTED_PER_STEP
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"[remat] B {bsz}: a {r['setting']} step launched {got}, "
+                                     f"predicted {want}")
+        by = {s: [r for r in runs[1:] if r["setting"] == s] for s in ("plain", "remat")}
+        out = {s: {"step_s": [r["s"] for r in rs], "peak_gib": max(r["peak_gib"] for r in rs),
+                   "launches": rs[0]["launches"]} for s, rs in by.items()}
+        out.update(gaps, warmup_s=runs[0]["s"])
+        rec[f"b{bsz}"] = out
+        log(f"  B {bsz}: step s plain {[round(t, 4) for t in out['plain']['step_s']]}, remat "
+            f"{[round(t, 4) for t in out['remat']['step_s']]}; peak GiB plain "
+            f"{out['plain']['peak_gib']:.2f}, remat {out['remat']['peak_gib']:.2f}; loss "
+            f"{gaps['loss_plain']!r} / {gaps['loss_remat']!r} (|diff| {gaps['loss_abs']:.3g}, floor "
+            f"{gaps['loss_floor']:.3g}); max |update diff| {gaps['update_max_abs']:.3g} (floor "
+            f"{gaps['update_floor']:.3g}); launches a remat step "
+            f"{ {k: out['remat']['launches'].get(k, 0) for k in EXPECTED_REMAT_STEP} }")
+        if not out["remat"]["peak_gib"] < out["plain"]["peak_gib"]:
+            raise AssertionError(f"[remat] B {bsz}: remat's peak {out['remat']['peak_gib']:.2f} GiB is "
+                                 f"not below plain's {out['plain']['peak_gib']:.2f} GiB")
+        del runs
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  remat phase wall time {rec['phase_s']:.1f} s ({smi})")
+    return rec
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3772,6 +4072,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tools_rec = phase_tools(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_rec = phase_remat(torch, np, smi)
 
     rows, records = [], []
     for r in results:
@@ -3786,6 +4089,7 @@ def main() -> int:
         records.append({**rows[-1], "pct_of_bound": 100.0 * r["bound_ms"] / r["ms"],
                         "trainer_launches": trainer_rec["launches"].get(r["name"], 0),
                         "data_parallel_launches": dp_rec["a"]["launches"].get(r["name"], 0),
+                        "remat_step_launches": remat_rec[f"b{B}"]["remat"]["launches"].get(r["name"], 0),
                         **({"tflop_s": r["flops"] / (r["ms"] * 1e-3) / 1e12} if "flops" in r else {}),
                         **{k: r[k] for k in ("ms_bhnd", "ms_kernel", "pack_ms", "pack_bwd_ms", "shapes") if k in r}})
         log(f"[{r['name']}] kernel {r['ms']:.4f} ms ({records[-1]['pct_of_bound']:.1f} % of bound), plain "
@@ -3811,7 +4115,7 @@ def main() -> int:
         json.dump({"card": smi, "torch": torch.__version__, "kernels": records, "slice": slice_rec,
                    "train": train_rec, "trainer": trainer_rec, "fusion_options": fusion_rec, "towers": towers_rec,
                    "data_parallel": dp_rec, "tensor_parallel": tp_rec, "backbones": backbones_rec,
-                   "heatmap": heatmap_rec, "tools": tools_rec,
+                   "heatmap": heatmap_rec, "tools": tools_rec, "remat": remat_rec,
                    "ptxas": ptxas,
                    "build": {k: v for k, v in kernels.BUILD_LOG.items() if k != "ptxas"}}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -4,6 +4,7 @@ runs as its own tests run it: Pallas in interpret mode, or impl="xla".
 Inputs are made with numpy from a seed and handed to both."""
 
 import ast
+import importlib
 import os
 import sys
 
@@ -19,7 +20,6 @@ from transfusion_torch.models.detector import rescale_boxes
 from transfusion_torch.ops import attention as t_attn
 from transfusion_torch.ops import boxes as t_boxes
 from transfusion_torch.ops import layer_norm as t_ln
-from transfusion_torch.ops import nms as t_nms
 from transfusion_torch.ops import roi_align as t_roi
 from transfusion_tpu.ops import attention as j_attn
 from transfusion_tpu.ops import boxes as j_boxes
@@ -28,6 +28,9 @@ from transfusion_tpu.ops.layer_norm import fused_layer_norm as j_fused_ln
 from transfusion_tpu.models.detector import rescale_boxes as j_rescale_boxes
 from transfusion_tpu.ops.nms import batched_nms as j_batched_nms
 from transfusion_tpu.ops.nms import class_nms_multi as j_class_nms_multi
+
+# The module: the package's exports (JAX's ``ops.__all__``) bind ``ops.nms`` to the function.
+t_nms = importlib.import_module("transfusion_torch.ops.nms")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

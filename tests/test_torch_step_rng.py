@@ -13,6 +13,7 @@ import dataclasses
 
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tests.torch_threads import cap_torch_threads  # noqa: F401
 from transfusion_torch.models import fusion
@@ -136,3 +137,80 @@ def test_fusion_option_steps_replay_from_seed_and_step(family, fusion_kw, model_
     first, again, later = step(3, 1), step(3, 2), step(4, 1)
     assert all(torch.equal(first[k], again[k]) for k in first), family
     assert not torch.equal(first[watched], later[watched]), watched
+
+
+@pytest.mark.parametrize("family, fusion_kw, model_kw", [
+    ("cross_transformer", dict(share_encoders=True, forward_language_f="sum"),
+     dict(use_visual_features=True, visual_feature_layers=1)),
+    ("asymmetric", dict(fusion_type="asymmetric", asymm_lang_layers=1), dict(lm_on=True)),
+    ("space_time", dict(fusion_type="space_time"), {}),
+])
+def test_remat_step_equals_plain_step(monkeypatch, family, fusion_kw, model_kw):
+    """``remat_fusion`` recomputes each fusion level in the backward on the
+    step's own draws: over two levels (the cross-transformer's with its
+    shared stack and clip-feature fusion; level 1's 8 + 8 tokens take K2's
+    path with its seed, level 2's 2 + 8 the plain attention with its keep
+    mask) with every dropout site on, the remat step gives the loss and
+    every parameter bit for bit (torch.equal) as the plain step does, and
+    the K2 seeds the step's DropoutRNG yields are the plain step's, drawn
+    again in the recompute. Only a training forward with autograd
+    recording checkpoints: a training forward under no_grad, an eval
+    forward and eval_with_losses (the last two checked once) run every
+    level plainly."""
+    from transfusion_torch.models import transfusion as tf
+
+    monkeypatch.setattr(fusion, "FLASH_MIN_LEN", 16)
+    seeds = []
+    draw_seed = te.DropoutRNG.attention_seed
+    monkeypatch.setattr(te.DropoutRNG, "attention_seed", lambda self: seeds.append(draw_seed(self)) or seeds[-1])
+    checkpoints = []
+    monkeypatch.setattr(tf, "checkpoint", lambda *a, **k: checkpoints.append(None) or checkpoint(*a, **k))
+    _, cfg = _model()
+    # 16 proposals an image at test time too: the plain RoIAlign over 1,000 is most of an eval forward.
+    rpn = dataclasses.replace(cfg.detector.rpn, pre_nms_top_n_test=32, post_nms_top_n_test=16)
+    cfg = dataclasses.replace(
+        cfg, detector=dataclasses.replace(cfg.detector, rpn=rpn),
+        fusion=dataclasses.replace(cfg.fusion, fpn_features=(1, 2), patch_h=(2, 2), patch_w=(2, 2),
+                                   num_layers=(1, 1), **fusion_kw), **model_kw)
+    model = init_random_(TransFusion(cfg, device="cpu"), seed=3)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(7)
+    batch = _batch(gen)
+    if cfg.use_visual_features:
+        batch["visual_features"] = torch.randn(B, 3, cfg.visual_feature_dim, generator=gen)
+    remat_model = dataclasses.replace(cfg, remat_fusion=True)
+    model.tcfg = remat_model
+    with torch.no_grad():
+        anchors = model.train()(batch, train=True, rng=te.DropoutRNG("cpu", 1, 0))["proposals"]["anchors"].shape[0]
+        if family == "cross_transformer":
+            model.eval()(batch)
+            model.eval_with_losses(batch)
+    assert checkpoints == [], family
+    n_roi = cfg.detector.rpn.post_nms_top_n_train + 2
+    draws = {"roi": tuple(torch.rand(B, n_roi, generator=gen) for _ in range(2)),
+             "rpn": tuple(torch.rand(B, anchors, generator=gen) for _ in range(2))}
+    lw = criterion_weights({"bbox": 1, "obj_prop": 1, "noun": 1, "verb": 1, "lm": 1})
+
+    def step(remat: bool):
+        model.tcfg = remat_model if remat else cfg
+        model.load_state_dict(start)
+        tx, _ = make_optimizer({"name": "radam", "lr": 1e-3}, None, 10)
+        state = TrainState(step=3, opt_state=tx.init(dict(model.named_parameters())), seed=11)
+        fn = make_train_step(model, tx, LossConfig(lm_on=cfg.lm_on, rpn_batch_size_per_image=16,
+                                                   last_noun_idx=6), torch.ones(7), torch.ones(5))
+        seeds.clear()
+        metrics = fn(state, batch, lw, None, draws)
+        assert metrics["nonfinite_skipped"] == 0.0
+        return {k: p.detach().clone() for k, p in model.named_parameters()}, metrics["loss"], list(seeds)
+
+    plain, plain_loss, plain_seeds = step(False)
+    assert checkpoints == []
+    remat, remat_loss, remat_seeds = step(True)
+    assert len(checkpoints) == 2, family
+    assert torch.equal(plain_loss, remat_loss), family
+    moved = [k for k in plain if not torch.equal(plain[k], start[k])]
+    assert len(moved) > len(plain) // 2, family
+    differ = [k for k in plain if not torch.equal(plain[k], remat[k])]
+    assert differ == [], (family, differ)
+    k2 = int(family == "cross_transformer")  # the other families' layers have no K2 path
+    assert len(plain_seeds) == k2 and remat_seeds == plain_seeds * 2, (family, plain_seeds, remat_seeds)

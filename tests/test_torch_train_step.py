@@ -22,7 +22,9 @@ because gradients of a deep f32 stack computed in another order agree to
 about 1e-5 relative and the first RAdam step passes the (clipped)
 gradient through unnormalised. One JAX train step is compiled
 once for the module, from shapes alone, in a thread while the fixture
-builds the port.
+builds the port. The port's step with ``remat_fusion`` is held against the
+same JAX step: JAX's ``nn.remat`` recomputes the same function, so the plain
+JAX program is its reference and no second one is compiled.
 """
 
 import concurrent.futures
@@ -149,7 +151,8 @@ def pair():
     return {"jmodel": jmodel, "jstate": state, "jstep": compiled, "jbatch": jbatch, "mult": mult,
             "port": port, "tstate": tstate, "tstep": tstep,
             "tbatch": dict(_to_torch(batch), image_hw=(H, W)),
-            "jcfg": jcfg}
+            "jcfg": jcfg, "tcfg": tcfg, "start": {k: v.clone() for k, v in port.state_dict().items()},
+            "loss_kw": loss_kw, "class_w": (nw, vw)}
 
 
 def _jax_draws(p, step: int, rng):
@@ -202,26 +205,35 @@ def test_unfreeze_multipliers_match_jax(pair):
             assert len(vals) == 1 and vals[0] == got[n], (epoch, mcfg, n, vals, got[n])
 
 
-def test_train_steps_match_jax(pair):
-    """One train step: losses and every parameter's update match the JAX
-    step's, and the JAX optimizer state after it, carried over with
-    radam_state_from_jax, equals the port's own. (Later steps only repeat
-    the RAdam chain and the schedules, which test_torch_train_ops.py holds
-    against optax over seven steps.)"""
+def _jax_step(p):
+    """(sampler draws, JAX state after one step, its metrics), made once for
+    the module."""
+    if "_jax" not in p:
+        from transfusion_torch.train.step import criterion_weights
+
+        rng = jax.random.key(7)
+        with torch.no_grad():
+            out = p["port"].eval()(p["tbatch"])
+        p["_anchors"] = out["proposals"]["anchors"].shape[0]
+        draws = _jax_draws(p, 0, rng)
+        lw = criterion_weights(CRITERION)
+        jstate, jm = p["jstep"].result()(p["jstate"], p["jbatch"], rng, jnp.asarray(lw), p["mult"])
+        p["_jax"] = (draws, jstate, jm)
+    return p["_jax"]
+
+
+def _hold_step(p, port, tstep, tstate):
+    """One port step from the module's start weights against the JAX step:
+    the losses, every parameter's update and the optimizer state."""
     from transfusion_torch.train.step import criterion_weights
 
-    rng = jax.random.key(7)
+    port.load_state_dict(p["start"])
+    draws, jstate, jm = _jax_step(p)
     lw = criterion_weights(CRITERION)
-    mult = _t_mult(pair)
-    names = [n for n, _ in pair["port"].named_parameters()]
-    before = {n: p.detach().clone() for n, p in pair["port"].named_parameters()}
-    with torch.no_grad():
-        out = pair["port"].eval()(pair["tbatch"])
-    pair["_anchors"] = out["proposals"]["anchors"].shape[0]
-    draws = _jax_draws(pair, 0, rng)
-    jstate, jm = pair["jstep"].result()(pair["jstate"], pair["jbatch"], rng, jnp.asarray(lw),
-                                        pair["mult"])
-    tm = pair["tstep"](pair["tstate"], pair["tbatch"], lw, mult, draws)
+    mult = _t_mult(p)
+    names = [n for n, _ in port.named_parameters()]
+    before = {n: q.detach().clone() for n, q in port.named_parameters()}
+    tm = tstep(tstate, p["tbatch"], lw, mult, draws)
     assert tm["nonfinite_skipped"] == 0.0 and float(jm["nonfinite_skipped"]) == 0.0
     for key in ("loss", "bbox_loss", "objectness_loss", "loss_rpn_box_reg", "noun_loss",
                 "verb_loss", "ttc_loss", "lm_loss"):
@@ -229,8 +241,8 @@ def test_train_steps_match_jax(pair):
                                    err_msg=key)
     want = state_dict_from_jax(jax.device_get(jstate.params))
     moved = 0
-    for n, p in pair["port"].named_parameters():
-        du_t = (p.detach() - before[n]).numpy()
+    for n, q in port.named_parameters():
+        du_t = (q.detach() - before[n]).numpy()
         du_j = (want[n] - before[n]).numpy()
         scale = float(np.abs(du_j).max())
         # An update is read as new - old, which carries the rounding of the
@@ -245,11 +257,44 @@ def test_train_steps_match_jax(pair):
         moved += scale > 0
     assert moved > len(names) // 2
     carried = radam_state_from_jax(jax.device_get(jstate.opt_state), names)
-    assert carried["count"] == pair["tstate"].opt_state["count"] == 1
+    assert carried["count"] == tstate.opt_state["count"] == 1
     for key, floor in (("mu", 1e-9), ("nu", 1e-15)):  # zero-gradient noise, as above
         for n in names:
-            got = pair["tstate"].opt_state[key][n].numpy()
+            got = tstate.opt_state[key][n].numpy()
             ref = carried[key][n].numpy()
             np.testing.assert_allclose(got, ref, rtol=1e-3,
                                        atol=max(1e-3 * float(np.abs(ref).max()), floor),
                                        err_msg=f"{key} {n}")
+
+
+def test_train_steps_match_jax(pair):
+    """One train step: losses and every parameter's update match the JAX
+    step's, and the JAX optimizer state after it, carried over with
+    radam_state_from_jax, equals the port's own. (Later steps only repeat
+    the RAdam chain and the schedules, which test_torch_train_ops.py holds
+    against optax over seven steps.)"""
+    _hold_step(pair, pair["port"], pair["tstep"], pair["tstate"])
+
+
+def test_remat_train_step_matches_jax(pair, monkeypatch):
+    """The port's step with ``remat_fusion=True`` (the fusion level
+    checkpointed, recomputed in the backward) against the same JAX step, at
+    the tolerances above: JAX's ``nn.remat`` recomputes the same function,
+    so the plain JAX step is the reference of both."""
+    import dataclasses
+
+    from transfusion_torch.models import transfusion as tf
+    from transfusion_torch.train.losses import build_class_weights
+    from transfusion_torch.train.optim import make_optimizer
+    from transfusion_torch.train.step import LossConfig, TrainState, make_train_step
+
+    port = tf.TransFusion(dataclasses.replace(pair["tcfg"], remat_fusion=True), device="cpu")
+    port.load_state_dict(pair["start"], strict=True)
+    tx, _ = make_optimizer(OPT_CFG, SCHED_CFG, steps_per_epoch=1, grad_clip=4.0)
+    tstate = TrainState(step=0, opt_state=tx.init(dict(port.named_parameters())))
+    tstep = make_train_step(port, tx, LossConfig(**pair["loss_kw"]),
+                            *build_class_weights(*pair["class_w"], 1.0, True, True))
+    calls, checkpoint = [], tf.checkpoint
+    monkeypatch.setattr(tf, "checkpoint", lambda *a, **k: calls.append(None) or checkpoint(*a, **k))
+    _hold_step(pair, port, tstep, tstate)
+    assert len(calls) == 1  # the one fusion level, rematerialised

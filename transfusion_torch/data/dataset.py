@@ -1,7 +1,9 @@
 """The Ego4D NAO dataset + narration context + static batch assembly (port of
-``transfusion_tpu/data/dataset.py``: the egonao path's ``build_narration_lookup``,
-``EgoNaoDataset`` and ``collate``; pandas and Pillow are imported where a
-function reads files or frames, so ``collate`` needs neither).
+``transfusion_tpu/data/dataset.py``: ``build_narration_lookup``, the
+``strategy: all`` family's ``pooled_video_narration_lookup``, ``EgoNaoDataset``,
+``collate`` and the multi-source ``MergedNaoDataset``; pandas and Pillow are
+imported where a function reads files or frames, so ``collate`` needs
+neither).
 
 Host-side counterpart of ``data_preprocessing/datasets/egonao_datasets.py`` +
 the narration wrappers (``modeling/narration_embeds/datasets/*``) + collate
@@ -85,6 +87,30 @@ def build_narration_lookup(
         return lookup
 
     raise ValueError(f"unknown narration strategy {strategy}")
+
+
+def pooled_video_narration_lookup(
+    annots: pd.DataFrame,
+    narration_embeds: dict,
+    pooling: str = "mean",
+    uid_col: str = "video_uid",
+) -> dict:
+    """The ``strategy: all`` narration family (AllNarr[Sbert|Embed]Wrapper,
+    all_embeddings_dsets.py:9-62): every sample of a video shares one pooled
+    embedding over ALL of that video's narrations. ``narration_embeds`` maps
+    narration string -> vector (precomputed offline); unknown narrations are
+    skipped; videos with none fall back to zeros. Returns uid -> vector for
+    EgoNaoDataset.narration_embedding_lookup."""
+    pool = np.max if pooling == "max" else np.mean
+    col = uid_col if uid_col in annots.columns else "video_id"
+    by_video: dict = {}
+    dim = len(next(iter(narration_embeds.values()))) if narration_embeds else 1
+    for video_id, group in annots.groupby(col):
+        vecs = [narration_embeds[n] for n in group["narration"] if n in narration_embeds]
+        by_video[video_id] = (
+            pool(np.asarray(vecs, np.float32), axis=0) if vecs else np.zeros(dim, np.float32)
+        )
+    return {uid: by_video[row[col]] for uid, row in annots.iterrows()}
 
 
 @dataclass
@@ -236,3 +262,53 @@ def collate(samples: list[dict], tokenizer=None, lang_max_length: int = 128) -> 
         batch["language_f"] = np.stack([s["language_f"] for s in samples])
     return batch
 
+
+class MergedNaoDataset:
+    """Multi-source dataset concat with UNIFIED label mappings
+    (``MergedNaoDataset``, data_preprocessing/datasets/snao_datasets.py:22-43):
+    each source's annotations are tagged with their source name, noun/verb
+    mappings are rebuilt over the union of all sources' labels, and indexing
+    routes through cumulative offsets. Every source dataset is re-viewed with
+    the merged mappings so labels are consistent across sources."""
+
+    def __init__(self, datasets: dict[str, EgoNaoDataset], mapping_file: str | None = None):
+        from dataclasses import replace
+
+        import pandas as pd
+
+        from transfusion_torch.data.labels import get_label_mapping
+
+        tagged = {src: ds.annots.assign(source=src) for src, ds in datasets.items()}
+        self.annots = pd.concat(list(tagged.values()), axis=0)
+        noun_mapping = get_label_mapping(self.annots["all_nouns"].explode(), "noun", mapping_file)
+        verb_mapping = get_label_mapping(self.annots["all_verbs"].explode(), "verb", mapping_file)
+        self.noun_mapping, self.verb_mapping = noun_mapping, verb_mapping
+        self.datasets = {
+            src: replace(ds, annots=tagged[src], noun_mapping=noun_mapping, verb_mapping=verb_mapping)
+            for src, ds in datasets.items()
+        }
+        self._order = list(self.datasets)
+        self._offsets = np.cumsum([0] + [len(self.datasets[s]) for s in self._order])
+        self.verb_bg = next(iter(datasets.values())).verb_bg
+        self.narration_lookup = {}
+        for ds in self.datasets.values():
+            self.narration_lookup.update(ds.narration_lookup)
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    @property
+    def num_nouns(self) -> int:
+        return 1 + len(self.noun_mapping)
+
+    @property
+    def num_verbs(self) -> int:
+        return len(self.verb_mapping) + (1 if self.verb_bg else 0)
+
+    def _route(self, idx: int):
+        src_i = int(np.searchsorted(self._offsets, idx, side="right")) - 1
+        return self.datasets[self._order[src_i]], idx - int(self._offsets[src_i])
+
+    def get_example(self, idx: int, rng: np.random.Generator, bucket, training: bool) -> dict:
+        ds, local = self._route(idx)
+        return ds.get_example(local, rng, bucket, training)

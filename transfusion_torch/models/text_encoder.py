@@ -47,6 +47,10 @@ class BertConfig:
     def minilm_l12(cls) -> "BertConfig":
         return cls()
 
+    @classmethod
+    def minilm_l6(cls) -> "BertConfig":
+        return cls(num_layers=6)
+
 
 def linear(x, mod: nn.Linear, dtype):
     """A linear layer in the compute dtype with f32 parameters cast at use.
@@ -92,6 +96,19 @@ class DropoutRNG:
         self.masks = torch.Generator(device=device).manual_seed(base + _MASK_STREAM)
         self.seeds = torch.Generator().manual_seed(base + _SEED_STREAM)
         self.rows = None if rows is None or rows[1] - rows[0] == rows[2] else tuple(rows)
+
+    def fork(self) -> "DropoutRNG":
+        """A copy that stands where this one stands: it makes the draws this
+        one would make next (keep masks and K2 seeds), and neither advances
+        the other. A rematerialised fusion level replays its span of draws
+        from a fork taken before the level ran."""
+        twin = DropoutRNG.__new__(DropoutRNG)
+        twin.masks = torch.Generator(device=self.masks.device)
+        twin.masks.set_state(self.masks.get_state())
+        twin.seeds = torch.Generator()
+        twin.seeds.set_state(self.seeds.get_state())
+        twin.rows = self.rows
+        return twin
 
     @property
     def batch_offset(self) -> int:

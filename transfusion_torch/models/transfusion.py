@@ -34,10 +34,12 @@ validation losses.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transfusion_torch.device import resolve_device
 from transfusion_torch.models.detector import DetectorConfig, FasterRCNN, backbone_channels
@@ -129,6 +131,11 @@ class TransFusionConfig:
     # (ttc_hand_head.use): its config, and the detections an image it scores.
     ttc_hand: TTCHeadConfig | None = None
     max_ttc_boxes: int = 5
+    # Rematerialise each fusion level in the backward of a training forward
+    # (JAX's nn.remat; TRANSFUSION_REMAT=1 in its entry point): the level
+    # keeps only its inputs and runs again, on the same dropout draws, when
+    # the backward reaches it, trading a fusion forward for its activations.
+    remat_fusion: bool = False
     dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
@@ -140,6 +147,28 @@ class TransFusionConfig:
         return CLIP_FEATURE_DIMS[self.clip_features]
 
 
+def rematerialised(level, feat, language_f, lang_mask, rng):
+    """``level(feat, language_f, lang_mask, rng=rng)`` under a non-reentrant
+    checkpoint: the forward keeps only the inputs, and the backward runs the
+    level again to get what its own backward needs. The recompute draws
+    from a fork of ``rng`` taken before the level ran, so it replays the
+    forward's keep masks and K2 seeds and computes the same function; the
+    step's ``rng`` goes on from where the level's forward left it. Every
+    draw comes from ``rng``, so torch's global generators are neither read
+    nor stashed (``preserve_rng_state=False``)."""
+    start = None if rng is None else rng.fork()
+    calls = []
+
+    def run(feat, language_f, lang_mask):
+        # The first call is the forward; a later one, a recompute.
+        replay = start.fork() if calls and start is not None else rng
+        calls.append(None)
+        return level(feat, language_f, lang_mask, rng=replay)
+
+    return checkpoint(run, feat, language_f, lang_mask, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _mean_lm_outs(outs: list) -> dict:
     """Per-level LM logits averaged (MultiPoolPredictor[Sep])."""
     verb = outs[0]["verb_logits"]
@@ -147,12 +176,13 @@ def _mean_lm_outs(outs: list) -> dict:
             "verb_logits": None if verb is None else sum(o["verb_logits"] for o in outs) / len(outs)}
 
 
-def flagship_config(s2d_stem: bool = False) -> TransFusionConfig:
+def flagship_config(s2d_stem: bool = False, remat_fusion: bool = False) -> TransFusionConfig:
     """The v2 flagship (ego_nao_res50_ego4dv2 + ego_vis_det_ego4dv2 dims):
     bf16 compute with f32 params, the plain 7x7 stem (``s2d_stem``: the
     space-to-depth stem, the stem of the JAX package's default build), and
-    attention kernel K2 on at its gate. Mirrors
-    ``__graft_entry__.py::_flagship_config``."""
+    attention kernel K2 on at its gate; ``remat_fusion`` rematerialises the
+    fusion levels in training, as the entry point's TRANSFUSION_REMAT=1 does.
+    Mirrors ``__graft_entry__.py::_flagship_config``."""
     dt = torch.bfloat16
     return TransFusionConfig(
         detector=DetectorConfig(
@@ -168,6 +198,7 @@ def flagship_config(s2d_stem: bool = False) -> TransFusionConfig:
                             asymm_lang_dropout=0.15),
         bert=BertConfig.minilm_l12(),
         out_mlp=896,
+        remat_fusion=remat_fusion,
         dtype=dt,
     )
 
@@ -224,7 +255,7 @@ def build_transfusion_config(config: dict, num_nouns: int, num_verbs: int,
     elif model_v == "minilm-tiny":
         bert = BertConfig(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
     elif "L6" in model_v:
-        bert = BertConfig(num_layers=6)
+        bert = BertConfig.minilm_l6()
     fusion_type = fusion_cfg.get("type", "cross_transformer")
     if fusion_type not in FUSION_TYPES:
         raise ValueError(f"cross_type={fusion_type!r} not implemented")
@@ -462,6 +493,7 @@ class TransFusion(FasterRCNN):
         if vis_f is not None:
             vis_f = vis_f.to(dev)
         shared = getattr(self, "shared_t_encoder", None)
+        remat = c.remat_fusion and train and torch.is_grad_enabled()
         language_f, lang_out, mscale = lang, None, []
         for i, lvl in enumerate(f.fpn_features):
             key = str(lvl)
@@ -469,9 +501,12 @@ class TransFusion(FasterRCNN):
             if f.fusion_type == "cross_transformer":
                 extra = {"shared_layers": None if shared is None else shared.layers,
                          "vis_fusion": self.vis_fusion[i] if c.use_visual_features else None}
-            fused, lang_out = self.cross_fusion_encoders[i](
-                feats[key], language_f, lang_mask, self.patches_to_token[i], self.tokens_to_features[i],
-                rng, visual_features=vis_f, **extra)
+            level = functools.partial(self.cross_fusion_encoders[i],
+                                      patch_conv=self.patches_to_token[i],
+                                      back_proj=self.tokens_to_features[i], visual_features=vis_f,
+                                      **extra)
+            fused, lang_out = (rematerialised(level, feats[key], language_f, lang_mask, rng) if remat
+                               else level(feats[key], language_f, lang_mask, rng=rng))
             mscale.append(lang_out)
             if f.forward_language_f == "direct":
                 language_f = lang_out

@@ -79,6 +79,13 @@ def class_nms_multi(boxes, scores, classes, valid, iou_thresh, max_keep, block_s
     return nms_multi(boxes + offsets, scores, valid, iou_thresh, max_keep, block_size)
 
 
+def nms(boxes, scores, valid, iou_thresh, max_keep, block_size=256):
+    """Single-image convenience wrapper around nms_multi."""
+    idx, keep_valid = nms_multi(boxes[None], scores[None], valid[None], iou_thresh, max_keep,
+                                block_size)
+    return idx[0], keep_valid[0]
+
+
 def batched_nms(boxes, scores, classes, valid, iou_thresh, max_keep, block_size=256):
     """Single-image per-class NMS (torchvision batched_nms semantics)."""
     idx, keep_valid = class_nms_multi(

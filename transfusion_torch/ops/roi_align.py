@@ -14,9 +14,12 @@ On a CUDA pyramid :func:`multiscale_roi_align` launches
 ``csrc/roi_align.cu`` (K5) forward and ``csrc/roi_align_bwd.cu`` (K6,
 port of ``roi_align_pallas.py::_bwd_kernel``) backward; on a CPU pyramid it
 runs :func:`roi_align_plain` and :func:`roi_align_bwd_plain`.
+:func:`roi_align` pools one single-level map the same way.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -284,6 +287,28 @@ def pooled_from_packed(packed, params, output_size: int = 7):
     the pyramid: K5 forward and K6 backward on CUDA, else the plain
     versions."""
     return _RoIAlign.apply(packed, params, output_size)
+
+
+def max_adaptive_samples(shapes, output_size: int, sampling_ratio: int) -> int:
+    """Static bound on the per-axis sample count (JAX's masked XLA path
+    sizes its gather with it; the port's plain version and K5 loop over
+    each RoI's own count)."""
+    if sampling_ratio > 0:
+        return sampling_ratio
+    biggest = max(max(h, w) for h, w in shapes)
+    return max(1, math.ceil(biggest / output_size))
+
+
+def roi_align(feat, rois, spatial_scale: float, output_size: int = 7, sampling_ratio: int = 0):
+    """Aligned RoIAlign on one single-level image: feat [H, W, C], rois
+    [R, 4] in image coordinates -> [R, P, P, C] in feat's dtype. As in JAX,
+    a one-level pyramid whose image height makes the level's scale equal
+    ``spatial_scale``: K5 on a CUDA map (which must fill whole 16-byte
+    vectors a pixel), the plain version on a CPU one."""
+    h, w = feat.shape[:2]
+    params = roi_sample_params(rois[None].detach().float(), [(h, w)], [0],
+                               (h / spatial_scale, w / spatial_scale), output_size, sampling_ratio)
+    return pooled_from_packed(feat[None].contiguous(), params, output_size)[0]
 
 
 def multiscale_roi_align(feats: dict, rois, image_hw, output_size: int = 7,
